@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on the card.
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own lines; any failure exits non-zero, and
+without a CUDA device the script exits non-zero before printing a result:
+
+1. the card (``nvidia-smi --query-gpu=name,power.limit``);
+2. the build of every ``src/repro_torch/csrc/*.cu`` (one nvcc per source,
+   all started together, with ``-Xptxas -v``) and the Triton JIT;
+3. each hand-written kernel against its plain PyTorch version on the card at
+   the main path's shapes: error, kernel / plain / library ms (CUDA events)
+   and the least time the card could take (bound);
+4. the main path: the full-width yi-6b ElasticTrainer, depth cut to 4 layers,
+   global batch 8 x 2048 on 4 logical replicas, stepped, shrunk to 2 on the
+   host lane, stepped, expanded to 4 on the p2p lane, stepped; launch counts
+   are zeroed just before and read just after; then one more step under
+   ``torch.profiler`` (device busy share, kernels by device time);
+5. a static vs rescaled trajectory check at depth 1;
+6. ``repro_torch.launch.train --smoke`` on the card with ``--rescale-at``,
+   ``--checkpoint-dir`` and ``--restart``.
+
+The last lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# keep Triton's compile cache inside the checkout's ignored build directory
+os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton"))
+
+from repro_torch.checkpoint.reshard import flatten_tree  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.elastic import (ElasticTrainer, TrainJobConfig,  # noqa: E402
+                                      local_slots)
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.pack import pack_leaves  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor cores,
+# bf16 tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES = 3.35e12
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RMSNORM_TOL = 1e-5
+# static vs rescaled at full width on the card: the shards of R=4 and R=2 are
+# products of different shapes, for which cuBLAS may pick kernels that sum in
+# another order; AdamW's m/sqrt(v) turns a rounding difference in a gradient
+# near eps into a visible step, so params get a looser bound than losses
+TRAJ_LOSS_TOL = 1e-4
+TRAJ_PARAM_TOL = 1e-3
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def say(phase, **kw):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+def time_ms(fn, iters, warmup=2, reps=5):
+    """Median over ``reps`` rounds of the mean ms of ``iters`` launches
+    between CUDA events (the median keeps one slow round, such as a stall
+    of the shared host, out of the number)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        rounds.append(start.elapsed_time(end) / iters)
+    return sorted(rounds)[len(rounds) // 2]
+
+
+def bound(nbytes, flops, dtype):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+# -- phase 2 -------------------------------------------------------------------
+
+def build_kernels():
+    t0 = time.perf_counter()
+    logs = _build.build(force=True, verbose=True)
+    wall = time.perf_counter() - t0
+    for name, info in logs.items():
+        say("build", source=f"{name}.cu", seconds=f"{info['seconds']:.1f}")
+        for line in info["log"].splitlines():
+            if "ptxas" in line:
+                print("  " + line.strip())
+    check(set(logs) == set(_build.sources()), f"built {sorted(logs)}")
+    x = torch.ones((1, 64), device="cuda")
+    t1 = time.perf_counter()
+    ops.rmsnorm(x, torch.ones(64, device="cuda"))
+    torch.cuda.synchronize()
+    say("build", nvcc_wall_s=f"{wall:.1f}",
+        triton_jit_s=f"{time.perf_counter() - t1:.1f}")
+
+
+# -- phase 3 -------------------------------------------------------------------
+
+def check_flash(gen):
+    B, S, H, KV, hd = 2, 2048, 32, 4, 128         # one replica's shard at R=4
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((B, S, H, hd), device="cuda", generator=gen).to(dtype)
+        k = torch.randn((B, S, KV, hd), device="cuda", generator=gen).to(dtype)
+        v = torch.randn((B, S, KV, hd), device="cuda", generator=gen).to(dtype)
+        out, lse = flash_attention_fwd(q, k, v)
+        exp = ref.flash_attention_ref(q.float(), k.float(), v.float()).to(dtype)
+        err = float((out.float() - exp.float()).abs().max())
+        lse_err = float((lse - ref.attention_lse_ref(q.float(), k.float())).abs().max())
+        del exp
+        check(math.isfinite(err) and err <= FLASH_TOL[dtype],
+              f"flash {dtype} max_abs_err {err} > {FLASH_TOL[dtype]}")
+        check(lse_err <= 1e-4, f"flash {dtype} lse err {lse_err}")
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v), 10)
+        plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), 3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        flops = 4 * hd * B * H * S * (S + 1) // 2      # causal pairs only
+        b_ms, b_by = bound(nbytes(q, k, v, out, lse), flops, dtype)
+        say("kernels", kernel="flash_attention", dtype=str(dtype).split(".")[1],
+            shape=f"B{B}xS{S}xH{H}xKV{KV}xhd{hd}", max_abs_err=err,
+            lse_err=lse_err, ms=ms, plain_ms=plain, library_ms=lib,
+            bound_ms=b_ms, bound_by=b_by)
+        if dtype == torch.float32:                       # the main path's type
+            rec = {"name": "flash_attention", "route": "cuda",
+                   "source": "src/repro_torch/csrc/flash_attention.cu",
+                   "replaces": "src/repro/kernels/flash_attention.py:26",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        del q, k, v, out, lse, qt, kt, vt
+    return rec
+
+
+def check_rmsnorm(gen):
+    N, D = 8 * 2048, 4096                        # the global batch's rows
+    x = torch.randn((N, D), device="cuda", generator=gen)
+    w = 1 + 0.1 * torch.randn((D,), device="cuda", generator=gen)
+    y = ops.rmsnorm(x, w)
+    err = float((y - ref.rmsnorm_ref(x, w)).abs().max())
+    check(err <= RMSNORM_TOL, f"rmsnorm max_abs_err {err} > {RMSNORM_TOL}")
+    ms = time_ms(lambda: ops.rmsnorm(x, w), 20)
+    plain = time_ms(lambda: ref.rmsnorm_ref(x, w), 10)
+    lib = time_ms(lambda: torch.nn.functional.rms_norm(x, (D,), w, 1e-5), 20)
+    b_ms, b_by = bound(nbytes(x, w, y), 4 * x.numel(), torch.float32)
+    say("kernels", kernel="rmsnorm", shape=f"{N}x{D}", max_abs_err=err, ms=ms,
+        plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    return {"name": "rmsnorm", "route": "triton",
+            "source": "src/repro_torch/kernels/rmsnorm.py",
+            "replaces": "src/repro/kernels/rmsnorm.py:11",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def check_pack(cfg):
+    params = M.init_params(cfg, 0, device="cuda")
+    leaves = [t.detach() for t in flatten_tree(params).values()]
+    out = pack_leaves(leaves)
+    exp = ref.pack_leaves_ref(leaves)
+    same = out.shape == exp.shape and torch.equal(out.view(torch.uint8),
+                                                  exp.view(torch.uint8))
+    err = 0.0 if same else float("inf")
+    check(same, "pack is not byte-identical to pack_leaves_ref")
+    del exp
+    ms = time_ms(lambda: pack_leaves(leaves), 5, warmup=1)
+    plain = time_ms(lambda: ref.pack_leaves_ref(leaves), 3, warmup=1)
+    b_ms, b_by = bound(nbytes(*leaves) + nbytes(out), 0, torch.float32)
+    say("kernels", kernel="pack", leaves=len(leaves),
+        gb=f"{nbytes(*leaves) / 1e9:.3f}", byte_identical=same, ms=ms,
+        plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del params, leaves, out
+    return {"name": "pack", "route": "cuda", "source": "src/repro_torch/csrc/pack.cu",
+            "replaces": "src/repro/kernels/pack.py:40", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+# -- phases 4 and 5 -----------------------------------------------------------------
+
+def run_elastic(cfg, job, steps=(2, 2, 2), log=True):
+    """steps at R=4, host-lane shrink to 2, steps, p2p expand to 4, steps."""
+    slots = local_slots(4)
+    t = ElasticTrainer(cfg, job, slots, device="cuda")
+    step_s, timings = [], []
+
+    def run(n):
+        for _ in range(n):
+            t0 = time.perf_counter()
+            m = t.step()
+            step_s.append(time.perf_counter() - t0)
+            if log:
+                say("main", step=m["step"], replicas=m["replicas"],
+                    loss=m["loss"], grad_norm=m["grad_norm"],
+                    seconds=f"{step_s[-1]:.3f}")
+    run(steps[0])
+    timings.append(t.rescale(slots[2:], via_host=True))
+    run(steps[1])
+    timings.append(t.rescale(slots))
+    run(steps[2])
+    return t, step_s, timings
+
+
+def main_path():
+    cfg = get_config("yi-6b").with_(num_layers=4)
+    job = TrainJobConfig(global_batch=8, seq_len=2048, total_steps=6, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t, step_s, timings = run_elastic(cfg, job)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    losses = [m["loss"] for m in t.metrics_log]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check([r.path for r in timings] == ["host", "p2p"],
+          f"paths {[r.path for r in timings]}")
+    for r in timings:
+        say("main", rescale=r.path, **{k: f"{v:.4f}" for k, v in r.as_dict().items()})
+    per_step = [4, 4, 2, 2, 4, 4]
+    expected_flash = 2 * cfg.num_layers * sum(per_step)  # fwd + recompute
+    say("main", params=M.param_count(cfg), startup_s=f"{t.startup_time:.2f}",
+        step_s=[round(s, 4) for s in step_s],
+        tokens_per_s=f"{job.global_batch * job.seq_len / min(step_s):.0f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+        launches=json.dumps(counts), expected_flash=expected_flash)
+    check(counts["flash_attention"] == expected_flash,
+          f"flash launches {counts['flash_attention']} != {expected_flash}")
+    check(counts["pack"] > 0, "the host lane did not go through the pack kernel")
+    profile_step(t)
+    del t
+    torch.cuda.empty_cache()
+    return counts
+
+
+KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",)), ("pack", ("pack_kernel",)),
+                 ("gemm", ("gemm", "xmma", "cutlass")), ("softmax", ("softmax",)),
+                 ("reduce", ("reduce",)), ("index", ("index", "scatter", "gather")),
+                 ("elementwise", ("elementwise",)))
+
+
+def kernel_group(name):
+    low = name.lower()
+    for group, words in KERNEL_GROUPS:
+        if any(w in low for w in words):
+            return group
+    return "other"
+
+
+def profile_step(t, top=8):
+    """One more steady step at R=4 under torch.profiler: device busy share,
+    device time by kernel group and the kernels that take the most (after
+    the launch counts were read, so it does not add to them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        t.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {}
+    for e in kernels:
+        g = kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    check(busy_ms > 0, "the profiler saw no device time")
+    say("profile", replicas=t.replicas, wall_ms=f"{wall_ms:.1f}",
+        device_ms=f"{busy_ms:.1f}", idle_share=f"{1 - busy_ms / wall_ms:.3f}",
+        **{f"{g}_ms": f"{v:.1f}" for g, v in sorted(groups.items(),
+                                                    key=lambda kv: -kv[1])})
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        say("profile", ms=f"{e.self_device_time_total / 1e3:.2f}",
+            calls=e.count, kernel=e.key[:90].replace(" ", "_"))
+
+
+def trajectory():
+    cfg = get_config("yi-6b").with_(num_layers=1)
+    job = TrainJobConfig(global_batch=8, seq_len=256, total_steps=6, seed=1)
+    static = ElasticTrainer(cfg, job, local_slots(4), device="cuda")
+    for _ in range(6):
+        static.step()
+    el, _, timings = run_elastic(cfg, job, log=False)
+    la = [m["loss"] for m in static.metrics_log]
+    lb = [m["loss"] for m in el.metrics_log]
+    lerr = max(abs(a - b) for a, b in zip(la, lb))
+    fa, fb = flatten_tree(static.params), flatten_tree(el.params)
+    perr = max(float((fa[k] - fb[k]).detach().abs().max()) for k in fa)
+    say("trajectory", depth=1, loss_err=lerr, param_err=perr,
+        loss_tol=TRAJ_LOSS_TOL, param_tol=TRAJ_PARAM_TOL,
+        paths=[r.path for r in timings], loss_first=la[0], loss_last=la[-1])
+    check(lerr <= TRAJ_LOSS_TOL, f"trajectory loss err {lerr}")
+    check(perr <= TRAJ_PARAM_TOL, f"trajectory param err {perr}")
+    del static, el
+    torch.cuda.empty_cache()
+
+
+# -- phase 6 -------------------------------------------------------------------------
+
+def train_cli_smoke():
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        args = ["--arch", "yi-6b", "--smoke", "--device", "cuda", "--devices", "4",
+                "--global-batch", "8", "--seq-len", "32", "--log-every", "2",
+                "--checkpoint-dir", d]
+        t1 = train_cli.main(args + ["--steps", "6", "--rescale-at", "2:2",
+                                    "--rescale-at", "4:4", "--checkpoint-every", "3"])
+        t2 = train_cli.main(args + ["--steps", "8", "--restart"])
+    losses = [m["loss"] for m in t1.metrics_log + t2.metrics_log]
+    check(all(math.isfinite(x) for x in losses), f"cli losses {losses}")
+    check([m["step"] for m in t2.metrics_log] == [7, 8], "restart did not resume")
+    check(t1.device.type == "cuda", "the CLI did not run on the card")
+    say("cli", rescales=[r.path for r in t1.rescale_log], losses=len(losses))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on the card",
+              file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    say("env", python=sys.version.split()[0], torch=torch.__version__,
+        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count())
+    build_kernels()
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = [check_flash(gen),
+               check_pack(get_config("yi-6b").with_(num_layers=4, dtype="float32")),
+               check_rmsnorm(gen)]
+    counts = main_path()
+    for rec in records:
+        rec["launches"] = counts[rec["name"]]
+    trajectory()
+    train_cli_smoke()
+    say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+    print(card)
+    print(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,134 @@
+"""The PyTorch port's dense yi-6b model against the JAX package on the CPU:
+configs, data stream, parameter keys and shapes, loss and every gradient.
+
+The JAX smoke parameters are carried across with ``from_numpy_flat``;
+tolerances are the reference's (loss 2e-5, gradients 1e-4)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.checkpoint.reshard import flatten_tree as jflatten  # noqa: E402
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import smoke_config as jsmoke_config  # noqa: E402
+from repro.data import make_stream as jmake_stream  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch.checkpoint.reshard import flatten_tree  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.data import make_stream  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+
+FIELDS = ("name", "num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
+          "vocab_size", "resolved_head_dim", "padded_vocab", "rope_theta",
+          "norm_eps", "ff_kind", "dtype", "vocab_pad_to")
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    jcfg = jsmoke_config("yi-6b").with_(dtype="float32")
+    cfg = smoke_config("yi-6b").with_(dtype="float32")
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    flat = {k: np.asarray(v) for k, v in jflatten(jparams).items()}
+    batch = make_stream(cfg, seed=1, global_batch=4, seq_len=32).global_batch_at(0)
+    batch["labels"][0, :5] = -1                      # exercise label masking
+    return jcfg, cfg, jparams, flat, batch
+
+
+@pytest.mark.parametrize("factory", ["get", "smoke"])
+def test_configs_match_reference(factory):
+    ours = (get_config if factory == "get" else smoke_config)("yi-6b")
+    ref = (jget_config if factory == "get" else jsmoke_config)("yi-6b")
+    for f in FIELDS:
+        assert getattr(ours, f) == getattr(ref, f), f
+    assert ours.scan_layers() == ref.scan_layers()
+    assert smoke_config("yi-6b").padded_vocab == 256     # valid_vocab mask in use
+
+
+def test_full_width_depth4_param_count():
+    # 2 x 262.1M embed/head + 4 x 173.0M per layer + the final norm
+    cfg = get_config("yi-6b").with_(num_layers=4)
+    assert M.param_count(cfg) == 2 * 64000 * 4096 + 4096 + 4 * (
+        2 * 4096 + 4096 * 4096 * 2 + 2 * 4096 * 512 + 3 * 4096 * 11008)
+
+
+@pytest.mark.parametrize("step", [0, 3, 11])
+def test_stream_is_bit_identical(step):
+    cfg = smoke_config("yi-6b")
+    ours = make_stream(cfg, seed=3, global_batch=8, seq_len=32)
+    ref = jmake_stream(jsmoke_config("yi-6b"), seed=3, global_batch=8, seq_len=32)
+    a, b = ours.global_batch_at(step), ref.global_batch_at(step)
+    for k in ("tokens", "labels"):
+        assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+    assert [ours.shard_bounds(i, 4) for i in range(4)] == \
+        [ref.shard_bounds(i, 4) for i in range(4)]
+
+
+def test_param_keys_and_shapes_equal_flatten_tree(smoke):
+    _, cfg, _, flat, _ = smoke
+    assert M.param_shapes(cfg) == {k: v.shape for k, v in flat.items()}
+    ours = flatten_tree(M.init_params(cfg, 0, device="cpu"))
+    assert list(ours) == list(flat)
+    assert {k: tuple(v.shape) for k, v in ours.items()} == \
+        {k: v.shape for k, v in flat.items()}
+
+
+def test_init_params_draw_reference_distributions():
+    cfg = smoke_config("yi-6b").with_(d_model=256, d_ff=512, dtype="float32")
+    p = flatten_tree(M.init_params(cfg, 0, device="cpu"))
+    assert torch.all(p["final_norm"] == 1)
+    w = p["decoder/blocks/sub0/ff/w_down"]
+    assert abs(float(w.detach().std()) - 512 ** -0.5) < 0.05 * 512 ** -0.5
+    assert all(t.requires_grad for t in p.values())
+
+
+def test_from_and_to_numpy_flat_roundtrip(smoke):
+    _, _, _, flat, _ = smoke
+    tree = M.from_numpy_flat(flat, device="cpu")
+    back = M.to_numpy_flat(tree)
+    assert list(back) == list(flat)
+    for k in flat:
+        assert back[k].tobytes() == flat[k].tobytes()
+
+
+def test_loss_and_every_gradient_match_jax(smoke):
+    jcfg, cfg, jparams, flat, batch = smoke
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, jm), jgrads = jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, jbatch), has_aux=True)(jparams)
+    params = M.from_numpy_flat(flat, device="cpu")
+    tbatch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    loss, m = M.loss_fn(cfg, params, tbatch)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=2e-5, rtol=2e-5)
+    assert float(m["tokens"]) == float(jm["tokens"]) == 4 * 32 - 5
+    jg = {k: np.asarray(v) for k, v in jflatten(jgrads).items()}
+    tg = flatten_tree(params)
+    assert list(tg) == list(jg)
+    for k in jg:
+        np.testing.assert_allclose(tg[k].grad.numpy(), jg[k], atol=1e-4,
+                                   rtol=1e-4, err_msg=k)
+
+
+def test_rope_ffn_and_xent_pieces_match_jax():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 8, 3, 16)).astype(np.float32)
+    pos = np.arange(8)
+    np.testing.assert_allclose(
+        layers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e4).numpy(),
+        np.asarray(jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4)),
+        atol=2e-5, rtol=2e-5)
+    h = rng.standard_normal((2, 16, 32)).astype(np.float32)
+    w = rng.standard_normal((32, 256)).astype(np.float32) * 0.1
+    lab = rng.integers(-1, 200, size=(2, 16)).astype(np.int32)
+    ls, wt = layers.chunked_softmax_xent(torch.from_numpy(h), torch.from_numpy(w),
+                                         torch.from_numpy(lab), chunk=4,
+                                         valid_vocab=200)
+    jls, jwt = jlayers.chunked_softmax_xent(jnp.asarray(h), jnp.asarray(w),
+                                            jnp.asarray(lab), chunk=4,
+                                            valid_vocab=200)
+    np.testing.assert_allclose(float(ls), float(jls), atol=2e-5, rtol=2e-5)
+    assert float(wt) == float(jwt)
