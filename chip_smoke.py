@@ -14,17 +14,21 @@ without a CUDA device the script exits non-zero before printing a result:
 3. each hand-written kernel against its plain PyTorch version on the card at
    the main path's shapes: error, kernel / plain / library ms (CUDA events)
    and the least time the card could take (bound);
-4. the main path: the full-width yi-6b ElasticTrainer, depth cut to 4 layers,
-   global batch 8 x 2048 on 4 logical replicas, stepped, shrunk to 2 on the
-   host lane, stepped, expanded to 4 on the p2p lane, stepped; launch counts
-   are zeroed just before and read just after; then one more step under
-   ``torch.profiler`` (device busy share, kernels by device time);
-5. a static vs rescaled trajectory check at depth 1;
+4. the main paths, each an ElasticTrainer at global batch 8 x 2048 on 4
+   logical replicas, stepped, shrunk to 2 on the host lane, stepped,
+   expanded to 4 on the p2p lane, stepped; launch counts are zeroed just
+   before each path and read just after it; then one more step under
+   ``torch.profiler`` (device busy share, kernels by device time).  First
+   yi-6b at full width with depth cut to 4 layers, then mamba2-1.3b at its
+   full published size (48 layers, 1,344,052,224 parameters);
+5. a static vs rescaled trajectory check at depth 1, for each path;
 6. ``repro_torch.launch.train --smoke`` on the card with ``--rescale-at``,
-   ``--checkpoint-dir`` and ``--restart``.
+   ``--checkpoint-dir`` and ``--restart``, for each arch.
 
 The last lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Each kernel record names the main path
+whose shapes it was measured at and holds its launches on that path; the
+pack kernel, which runs on both, has one record per path.
 """
 import json
 import math
@@ -42,14 +46,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton"))
 
 from repro_torch.checkpoint.reshard import flatten_tree  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ATTN, get_config  # noqa: E402
 from repro_torch.core.elastic import (ElasticTrainer, TrainJobConfig,  # noqa: E402
                                       local_slots)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.optim.adamw import adamw_init  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor cores,
 # bf16 tensor cores, HBM3 bandwidth
@@ -58,6 +64,9 @@ PEAK_BYTES = 3.35e12
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMSNORM_TOL = 1e-5
+# atol = rtol, the reference's own SSD tolerances (tests/test_kernels.py:79)
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+MAMBA2_PARAMS = 1_344_052_224
 # static vs rescaled at full width on the card: the shards of R=4 and R=2 are
 # products of different shapes, for which cuBLAS may pick kernels that sum in
 # another order; AdamW's m/sqrt(v) turns a rounding difference in a gradient
@@ -161,7 +170,7 @@ def check_flash(gen):
             lse_err=lse_err, ms=ms, plain_ms=plain, library_ms=lib,
             bound_ms=b_ms, bound_by=b_by)
         if dtype == torch.float32:                       # the main path's type
-            rec = {"name": "flash_attention", "route": "cuda",
+            rec = {"name": "flash_attention", "path": "yi-6b", "route": "cuda",
                    "source": "src/repro_torch/csrc/flash_attention.cu",
                    "replaces": "src/repro/kernels/flash_attention.py:26",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -183,34 +192,135 @@ def check_rmsnorm(gen):
     b_ms, b_by = bound(nbytes(x, w, y), 4 * x.numel(), torch.float32)
     say("kernels", kernel="rmsnorm", shape=f"{N}x{D}", max_abs_err=err, ms=ms,
         plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-    return {"name": "rmsnorm", "route": "triton",
+    return {"name": "rmsnorm", "path": "yi-6b", "route": "triton",
             "source": "src/repro_torch/kernels/rmsnorm.py",
             "replaces": "src/repro/kernels/rmsnorm.py:11",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
 
-def check_pack(cfg):
-    params = M.init_params(cfg, 0, device="cuda")
-    leaves = [t.detach() for t in flatten_tree(params).values()]
-    out = pack_leaves(leaves)
-    exp = ref.pack_leaves_ref(leaves)
-    same = out.shape == exp.shape and torch.equal(out.view(torch.uint8),
-                                                  exp.view(torch.uint8))
-    err = 0.0 if same else float("inf")
-    check(same, "pack is not byte-identical to pack_leaves_ref")
-    del exp
-    ms = time_ms(lambda: pack_leaves(leaves), 5, warmup=1)
-    plain = time_ms(lambda: ref.pack_leaves_ref(leaves), 3, warmup=1)
-    b_ms, b_by = bound(nbytes(*leaves) + nbytes(out), 0, torch.float32)
-    say("kernels", kernel="pack", leaves=len(leaves),
-        gb=f"{nbytes(*leaves) / 1e9:.3f}", byte_identical=same, ms=ms,
-        plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by)
-    del params, leaves, out
-    return {"name": "pack", "route": "cuda", "source": "src/repro_torch/csrc/pack.cu",
-            "replaces": "src/repro/kernels/pack.py:40", "max_abs_err": err,
+def pack_groups(cfg, gen):
+    """The leaf lists that the host-lane shrink of ``cfg``'s trainer packs,
+    one per pack launch, grouped as ``packed_snapshot_to_host`` groups them:
+    the float32 parameters, the float32 AdamW moments and the int32 step
+    count.  Moments and count are filled, so the bytes compared are not all
+    zero."""
+    params = M.init_params(cfg.with_(dtype=TrainJobConfig.dtype), 0, device="cuda")
+    opt = adamw_init(params)
+    for t in flatten_tree(opt).values():
+        if t.is_floating_point():
+            t.normal_(generator=gen)
+        else:
+            t.fill_(2)
+    groups = []
+    for tree in (params, opt):
+        by_dtype = {}
+        for t in flatten_tree(tree).values():
+            by_dtype.setdefault(t.dtype, []).append(t.detach())
+        groups += by_dtype.values()
+    return groups
+
+
+def check_pack(cfg, gen):
+    """The pack kernel on each leaf list of ``cfg``'s host-lane shrink: byte
+    equality with ``pack_leaves_ref``, and the times of the whole snapshot's
+    launches (sums of each launch's median)."""
+    ms = plain = 0.0
+    moved = 0
+    groups = pack_groups(cfg, gen)
+    for leaves in groups:
+        out = pack_leaves(leaves)
+        exp = ref.pack_leaves_ref(leaves)
+        same = out.shape == exp.shape and torch.equal(out.view(torch.uint8),
+                                                      exp.view(torch.uint8))
+        check(same, f"{cfg.name}: pack of {len(leaves)} {leaves[0].dtype} leaves "
+              "is not byte-identical to pack_leaves_ref")
+        del exp
+        g_ms = time_ms(lambda: pack_leaves(leaves), 5, warmup=1)
+        g_plain = time_ms(lambda: ref.pack_leaves_ref(leaves), 3, warmup=1)
+        say("kernels", kernel="pack", path=cfg.name,
+            dtype=str(leaves[0].dtype).split(".")[1], leaves=len(leaves),
+            gb=f"{nbytes(*leaves) / 1e9:.3f}", byte_identical=same, ms=g_ms,
+            plain_ms=g_plain)
+        ms, plain, moved = ms + g_ms, plain + g_plain, moved + nbytes(*leaves, out)
+        del out
+    b_ms, b_by = bound(moved, 0, torch.float32)
+    say("kernels", kernel="pack", path=cfg.name, launches_per_snapshot=len(groups),
+        gb_moved=f"{moved / 1e9:.3f}", ms=ms, plain_ms=plain, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by)
+    del groups
+    return {"name": "pack", "path": cfg.name, "route": "cuda",
+            "source": "src/repro_torch/csrc/pack.cu",
+            "replaces": "src/repro/kernels/pack.py:40", "max_abs_err": 0.0,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+
+
+def _ssd_inputs(gen, B, L, H, P, G, N, dtype, dt_shift=0.0):
+    """The reference kernel test's distributions (tests/test_kernels.py),
+    with dt = softplus(N(0,1) + dt_shift)."""
+    x = (0.5 * torch.randn((B, L, H, P), device="cuda", generator=gen)).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, L, H), device="cuda", generator=gen) + dt_shift)
+    a_log = torch.log(1 + 7 * torch.rand((H,), device="cuda", generator=gen))
+    b = (0.3 * torch.randn((B, L, G, N), device="cuda", generator=gen)).to(dtype)
+    c = (0.3 * torch.randn((B, L, G, N), device="cuda", generator=gen)).to(dtype)
+    return x, dt, a_log, b, c
+
+
+def _ssd_err(out, exp, tol):
+    """(max |out - exp|, max |out - exp| / (tol + tol * |exp|)): the check is
+    the reference's ``assert_allclose(atol=tol, rtol=tol)``, which passes
+    while the second number is at most 1."""
+    diff = (out.float() - exp.float()).abs()
+    return float(diff.max()), float((diff / (tol + tol * exp.float().abs())).max())
+
+
+def check_ssd(gen):
+    B, L, H, P, G, N, Q = 2, 2048, 64, 64, 1, 128, 128   # one replica's shard at R=4
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _ssd_inputs(gen, B, L, H, P, G, N, dtype)
+        y = ssd_scan_fwd(*args, chunk=Q)
+        err, frac = _ssd_err(y, ref.ssd_chunked_ref(*args, chunk=Q), SSD_TOL[dtype])
+        check(frac <= 1.0, f"ssd {dtype} max_abs_err {err}: {frac} of the "
+              f"allowance atol=rtol={SSD_TOL[dtype]}")
+        ms = time_ms(lambda: ssd_scan_fwd(*args, chunk=Q), 10)
+        plain = time_ms(lambda: ref.ssd_chunked_ref(*args, chunk=Q), 3, warmup=1)
+        pairs = Q * (Q + 1) // 2                         # causal pairs only
+        flops = B * H * (L // Q) * (2 * pairs * (N + P) + 4 * Q * N * P)
+        b_ms, b_by = bound(nbytes(*args, y), flops, dtype)
+        say("kernels", kernel="ssd", dtype=str(dtype).split(".")[1],
+            shape=f"B{B}xL{L}xH{H}xP{P}xG{G}xN{N}xQ{Q}", max_abs_err=err,
+            atol_rtol=SSD_TOL[dtype], of_allowance=frac, ms=ms, plain_ms=plain,
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=flops,
+            bytes=nbytes(*args, y))
+        if dtype == torch.float32:                       # the main path's type
+            rec = {"name": "ssd", "path": "mamba2-1.3b", "route": "cuda",
+                   "source": "src/repro_torch/csrc/ssd_scan.cu",
+                   "replaces": "src/repro/kernels/ssd_scan.py:24",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del args, y
+    # long memory: dt about 0.004 (the low end of Mamba-2's dt init), so
+    # dt*A sums to a few units over a chunk and the state carried from
+    # earlier chunks makes up about half of y (by norm, past the first chunk)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _ssd_inputs(gen, B, L, H, P, G, N, dtype, dt_shift=-6.0)
+        err, frac = _ssd_err(ssd_scan_fwd(*args, chunk=Q),
+                             ref.ssd_chunked_ref(*args, chunk=Q), SSD_TOL[dtype])
+        check(frac <= 1.0, f"ssd {dtype} long memory: max_abs_err {err}")
+        say("kernels", kernel="ssd", case="long_memory", dt_shift=-6.0,
+            dtype=str(dtype).split(".")[1], max_abs_err=err, of_allowance=frac)
+        del args
+    # groups > 1 against the naive recurrence
+    args = _ssd_inputs(gen, 2, 64, 4, 16, 2, 16, torch.float32)
+    err, frac = _ssd_err(ssd_scan_fwd(*args, chunk=16), ref.ssd_ref(*args),
+                         SSD_TOL[torch.float32])
+    check(frac <= 1.0, f"ssd G=2 vs the naive recurrence: max_abs_err {err}")
+    say("kernels", kernel="ssd", vs="ssd_ref", shape="B2xL64xH4xP16xG2xN16xQ16",
+        max_abs_err=err, of_allowance=frac)
+    return rec
 
 
 # -- phases 4 and 5 -----------------------------------------------------------------
@@ -238,8 +348,7 @@ def run_elastic(cfg, job, steps=(2, 2, 2), log=True):
     return t, step_s, timings
 
 
-def main_path():
-    cfg = get_config("yi-6b").with_(num_layers=4)
+def main_path(cfg):
     job = TrainJobConfig(global_batch=8, seq_len=2048, total_steps=6, seed=0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -254,14 +363,15 @@ def main_path():
     for r in timings:
         say("main", rescale=r.path, **{k: f"{v:.4f}" for k, v in r.as_dict().items()})
     per_step = [4, 4, 2, 2, 4, 4]
-    expected_flash = 2 * cfg.num_layers * sum(per_step)  # fwd + recompute
-    say("main", params=M.param_count(cfg), startup_s=f"{t.startup_time:.2f}",
-        step_s=[round(s, 4) for s in step_s],
+    kernel = "flash_attention" if cfg.mixer_at(0) == ATTN else "ssd"
+    expected = 2 * cfg.num_layers * sum(per_step)       # fwd + recompute
+    say("main", arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
+        startup_s=f"{t.startup_time:.2f}", step_s=[round(s, 4) for s in step_s],
         tokens_per_s=f"{job.global_batch * job.seq_len / min(step_s):.0f}",
         peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-        launches=json.dumps(counts), expected_flash=expected_flash)
-    check(counts["flash_attention"] == expected_flash,
-          f"flash launches {counts['flash_attention']} != {expected_flash}")
+        launches=json.dumps(counts), **{f"expected_{kernel}": expected})
+    check(counts[kernel] == expected,
+          f"{kernel} launches {counts[kernel]} != {expected}")
     check(counts["pack"] > 0, "the host lane did not go through the pack kernel")
     profile_step(t)
     del t
@@ -269,7 +379,8 @@ def main_path():
     return counts
 
 
-KERNEL_GROUPS = (("flash_attention", ("flash_fwd_kernel",)), ("pack", ("pack_kernel",)),
+KERNEL_GROUPS = (("ssd", ("ssd_scan_kernel",)),
+                 ("flash_attention", ("flash_fwd_kernel",)), ("pack", ("pack_kernel",)),
                  ("gemm", ("gemm", "xmma", "cutlass")), ("softmax", ("softmax",)),
                  ("reduce", ("reduce",)), ("index", ("index", "scatter", "gather")),
                  ("elementwise", ("elementwise",)))
@@ -286,33 +397,41 @@ def kernel_group(name):
 def profile_step(t, top=8):
     """One more steady step at R=4 under torch.profiler: device busy share,
     device time by kernel group and the kernels that take the most (after
-    the launch counts were read, so it does not add to them)."""
+    the launch counts were read, so it does not add to them).  Only device
+    activity is traced, and the raw events are summed by name: a Mamba-2
+    step launches hundreds of thousands of kernels, too many for
+    ``key_averages()`` to group in the time limit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         t.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    t1 = time.perf_counter()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            n, ms = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
+    busy_ms = sum(ms for _, ms in by_name.values())
     groups = {}
-    for e in kernels:
-        g = kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    for name, (_, ms) in by_name.items():
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
     check(busy_ms > 0, "the profiler saw no device time")
-    say("profile", replicas=t.replicas, wall_ms=f"{wall_ms:.1f}",
+    say("profile", arch=t.cfg.name, replicas=t.replicas, wall_ms=f"{wall_ms:.1f}",
         device_ms=f"{busy_ms:.1f}", idle_share=f"{1 - busy_ms / wall_ms:.3f}",
+        kernels=sum(n for n, _ in by_name.values()),
+        parse_s=f"{time.perf_counter() - t1:.1f}",
         **{f"{g}_ms": f"{v:.1f}" for g, v in sorted(groups.items(),
                                                     key=lambda kv: -kv[1])})
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        say("profile", ms=f"{e.self_device_time_total / 1e3:.2f}",
-            calls=e.count, kernel=e.key[:90].replace(" ", "_"))
+    for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        say("profile", ms=f"{ms:.2f}", calls=n, kernel=name[:90].replace(" ", "_"))
 
 
-def trajectory():
-    cfg = get_config("yi-6b").with_(num_layers=1)
+def trajectory(arch):
+    cfg = get_config(arch).with_(num_layers=1)
     job = TrainJobConfig(global_batch=8, seq_len=256, total_steps=6, seed=1)
     static = ElasticTrainer(cfg, job, local_slots(4), device="cuda")
     for _ in range(6):
@@ -323,7 +442,7 @@ def trajectory():
     lerr = max(abs(a - b) for a, b in zip(la, lb))
     fa, fb = flatten_tree(static.params), flatten_tree(el.params)
     perr = max(float((fa[k] - fb[k]).detach().abs().max()) for k in fa)
-    say("trajectory", depth=1, loss_err=lerr, param_err=perr,
+    say("trajectory", arch=arch, depth=1, loss_err=lerr, param_err=perr,
         loss_tol=TRAJ_LOSS_TOL, param_tol=TRAJ_PARAM_TOL,
         paths=[r.path for r in timings], loss_first=la[0], loss_last=la[-1])
     check(lerr <= TRAJ_LOSS_TOL, f"trajectory loss err {lerr}")
@@ -334,10 +453,10 @@ def trajectory():
 
 # -- phase 6 -------------------------------------------------------------------------
 
-def train_cli_smoke():
+def train_cli_smoke(arch):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
-        args = ["--arch", "yi-6b", "--smoke", "--device", "cuda", "--devices", "4",
+        args = ["--arch", arch, "--smoke", "--device", "cuda", "--devices", "4",
                 "--global-batch", "8", "--seq-len", "32", "--log-every", "2",
                 "--checkpoint-dir", d]
         t1 = train_cli.main(args + ["--steps", "6", "--rescale-at", "2:2",
@@ -347,7 +466,7 @@ def train_cli_smoke():
     check(all(math.isfinite(x) for x in losses), f"cli losses {losses}")
     check([m["step"] for m in t2.metrics_log] == [7, 8], "restart did not resume")
     check(t1.device.type == "cuda", "the CLI did not run on the card")
-    say("cli", rescales=[r.path for r in t1.rescale_log], losses=len(losses))
+    say("cli", arch=arch, rescales=[r.path for r in t1.rescale_log], losses=len(losses))
 
 
 def main():
@@ -364,14 +483,18 @@ def main():
     build_kernels()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    records = [check_flash(gen),
-               check_pack(get_config("yi-6b").with_(num_layers=4, dtype="float32")),
-               check_rmsnorm(gen)]
-    counts = main_path()
-    for rec in records:
-        rec["launches"] = counts[rec["name"]]
-    trajectory()
-    train_cli_smoke()
+    paths = [get_config("yi-6b").with_(num_layers=4), get_config("mamba2-1.3b")]
+    check(M.param_count(paths[1]) == MAMBA2_PARAMS,
+          f"mamba2-1.3b has {M.param_count(paths[1])} parameters")
+    records = [check_flash(gen), check_rmsnorm(gen), check_ssd(gen)]
+    records += [check_pack(cfg, gen) for cfg in paths]
+    counts = {cfg.name: main_path(cfg) for cfg in paths}
+    for rec in records:     # each record's launches on the path its shapes are from
+        rec["launches"] = counts[rec["path"]][rec["name"]]
+    for cfg in paths:
+        trajectory(cfg.name)
+    for cfg in paths:
+        train_cli_smoke(cfg.name)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": records}))

@@ -2,13 +2,15 @@
 
 They are the CPU path (a kernel wrapper given a CPU tensor runs these) and
 the ground truth the kernels are held against on the card.  Each mirrors its
-counterpart in ``repro.kernels.ref`` / ``repro.kernels.pack``.
+counterpart in ``repro.kernels.ref`` / ``repro.kernels.pack``;
+``ssd_chunked_ref`` mirrors ``repro.models.ssm.ssd_chunked``.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = torch.finfo(torch.float32).min
 PACK_LANE = 128
@@ -47,6 +49,80 @@ def attention_lse_ref(q, k, *, causal: bool = True,
     scale = hd ** -0.5 if scale is None else scale
     lse = torch.logsumexp(_gqa_scores(q, k, causal, scale), dim=-1)
     return lse.reshape(B, H, Sq)
+
+
+def ssd_ref(x, dt, a_log, b, c):
+    """Naive O(L) SSD recurrence (fp32 state), the slow-but-exact oracle.
+
+    x: (B,L,H,P); dt: (B,L,H) post-softplus; a_log: (H,); b,c: (B,L,G,N).
+    h_t = exp(A*dt_t) h_{t-1} + dt_t * (B_t (x) x_t);  y_t = h_t C_t
+    """
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep = H // G
+    A = -torch.exp(a_log.float())
+    bh = b.float().repeat_interleave(rep, dim=2)             # (B,L,H,N)
+    ch = c.float().repeat_interleave(rep, dim=2)
+    xf, dtf = x.float(), dt.float()
+    h = x.new_zeros((B, H, P, N), dtype=torch.float32)
+    ys = []
+    for t in range(L):
+        a_t = torch.exp(dtf[:, t] * A)                       # (B,H)
+        h = h * a_t[..., None, None] + \
+            (dtf[:, t, :, None] * xf[:, t])[..., None] * bh[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)                # (B,L,H,P)
+
+
+def _ssd_chunk(h_prev, xq, dtq, bq, cq, A, tri, rep: int):
+    """One chunk of ``ssd_chunked_ref``: (h_prev, inputs) -> (h, y) in fp32."""
+    xq, dtq = xq.float(), dtq.float()
+    bh = bq.float().repeat_interleave(rep, dim=2)            # (B,Q,H,N)
+    ch = cq.float().repeat_interleave(rep, dim=2)
+    cum = torch.cumsum(dtq * A, dim=1)                       # (B,Q,H)
+    # intra-chunk quadratic term; the mask goes in before exp: above the
+    # diagonal cum_i - cum_j > 0 can overflow, and exp(-inf) = 0 keeps both
+    # the forward and its gradient finite there
+    diff = cum[:, :, None, :] - cum[:, None, :, :]           # (B,Q,Q,H)
+    decay = torch.exp(torch.where(tri[None, :, :, None], diff,
+                                  torch.full_like(diff, float("-inf"))))
+    cb = torch.einsum("bqhs,bkhs->bqkh", ch, bh)
+    scores = cb * decay * dtq[:, None, :, :]                 # dt_k on columns
+    y = torch.einsum("bqkh,bkhp->bqhp", scores, xq)
+    # inter-chunk contribution from the carried state
+    y = y + torch.einsum("bqh,bqhs,bhps->bqhp", torch.exp(cum), ch, h_prev)
+    # state update
+    tail = torch.exp(cum[:, -1:, :] - cum)                   # (B,Q,H)
+    sstate = torch.einsum("bqh,bqhs,bqhp->bhps", tail * dtq, bh, xq)
+    h = h_prev * torch.exp(cum[:, -1, :])[..., None, None] + sstate
+    return h, y
+
+
+def ssd_chunked_ref(x, dt, a_log, b, c, *, chunk: int):
+    """Chunked SSD, the plain version of ``csrc/ssd_scan.cu`` (counterpart of
+    ``repro.models.ssm.ssd_chunked``).
+
+    x: (B,L,H,P); dt: (B,L,H) post-softplus; a_log: (H,); b,c: (B,L,G,N)
+    with G dividing H.  Returns y: (B,L,H,P) in x's type.  A Python loop over
+    chunks carries the (B,H,P,N) fp32 state; each chunk body runs under
+    ``torch.utils.checkpoint``, so only one chunk's (B,Q,Q,H) tensors are
+    live in the forward and in the backward."""
+    B, L, H, P = x.shape
+    G = b.shape[2]
+    Q = min(chunk, L)
+    if L % Q or H % G:
+        raise ValueError(f"ssd needs L % chunk == 0 and H % G == 0, got "
+                         f"L={L}, chunk={Q}, H={H}, G={G}")
+    A = -torch.exp(a_log.float())                            # (H,) negative
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    h = x.new_zeros((B, H, P, b.shape[3]), dtype=torch.float32)
+    ys = []
+    for c0 in range(0, L, Q):
+        sl = slice(c0, c0 + Q)
+        h, y = checkpoint(_ssd_chunk, h, x[:, sl], dt[:, sl], b[:, sl],
+                          c[:, sl], A, tri, H // G, use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype)
 
 
 def rmsnorm_ref(x, w, eps: float = 1e-5):

@@ -1,1 +1,2 @@
-"""Dense GQA + SwiGLU decoder of the port (yi-6b family)."""
+"""Decoders of the port: dense GQA + SwiGLU (yi-6b) and Mamba-2 SSD
+(mamba2-1.3b)."""

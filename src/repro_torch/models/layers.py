@@ -18,6 +18,11 @@ def rmsnorm(x, weight, eps: float):
     return (y * weight.float()).to(x.dtype)
 
 
+def gated_rmsnorm(x, gate, weight, eps: float):
+    """Mamba-2 output norm: rmsnorm(x * silu(gate))."""
+    return rmsnorm(x * F.silu(gate.float()).to(x.dtype), weight, eps)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None):
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exps)

@@ -1,5 +1,5 @@
 """Public model API of the port (counterpart of ``repro.models.model``, the
-training forward of the dense decoder).
+training forward of the dense and Mamba-2 decoders).
 
 Batch convention: ``tokens`` and ``labels`` are (B, S) integer tensors on the
 parameters' device, label -1 = masked.
@@ -29,17 +29,25 @@ def forward_hidden(cfg: ModelConfig, params, batch):
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
+def _head_weight(cfg: ModelConfig, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T          # (D, V)
+    return params["lm_head"]
+
+
 def loss_terms(cfg: ModelConfig, params, batch):
     """(loss_sum, weight) of the batch: summed token cross-entropy and the
     number of unmasked labels, so shards combine as sum/sum."""
     hidden = forward_hidden(cfg, params, batch)
-    return chunked_softmax_xent(hidden, params["lm_head"], batch["labels"],
+    return chunked_softmax_xent(hidden, _head_weight(cfg, params),
+                                batch["labels"],
                                 chunk=min(LOSS_CHUNK, hidden.shape[1]),
                                 valid_vocab=cfg.vocab_size)
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, dict]:
-    """(loss, {"loss","xent","aux","tokens"}); the dense path has no aux."""
+    """(loss, {"loss","xent","aux","tokens"}); neither family has an aux
+    loss."""
     loss_sum, weight = loss_terms(cfg, params, batch)
     xent = loss_sum / torch.clamp(weight, min=1.0)
     aux = torch.zeros((), dtype=torch.float32, device=xent.device)

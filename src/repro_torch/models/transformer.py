@@ -1,4 +1,6 @@
-"""Dense decoder stack (counterpart of ``repro.models.transformer``).
+"""Decoder stack (counterpart of ``repro.models.transformer``): each layer's
+mixer is attention or the Mamba-2 SSD block, and its FFN SwiGLU or none, as
+``cfg.mixer_at`` / ``cfg.ff_at`` say.
 
 Block parameters are stacked with a leading layer axis
 (``decoder/blocks/sub0/...``) as the reference scans them.  Each layer runs
@@ -11,17 +13,27 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, FF_NONE, SSM, ModelConfig
 from repro_torch.models.attention import attn_forward
 from repro_torch.models.layers import apply_ffn, rmsnorm
+from repro_torch.models.ssm import ssm_forward
 
 
-def apply_layer(cfg: ModelConfig, p: dict, x, *, positions):
-    """RMSNorm -> GQA attention -> residual -> RMSNorm -> SwiGLU -> residual."""
+def apply_layer(cfg: ModelConfig, p: dict, x, layer_idx: int, *, positions):
+    """RMSNorm -> mixer -> residual [-> RMSNorm -> FFN -> residual]."""
+    mixer = cfg.mixer_at(layer_idx)
     h = rmsnorm(x, p["mixer_norm"], cfg.norm_eps)
-    x = x + attn_forward(cfg, p["mixer"], h, positions=positions)
-    h = rmsnorm(x, p["ff_norm"], cfg.norm_eps)
-    return x + apply_ffn(p["ff"], h, cfg.ff_kind)
+    if mixer == ATTN:
+        x = x + attn_forward(cfg, p["mixer"], h, positions=positions)
+    elif mixer == SSM:
+        x = x + ssm_forward(cfg, p["mixer"], h)
+    else:
+        raise ValueError(mixer)
+    ff = cfg.ff_at(layer_idx)
+    if ff != FF_NONE:
+        h = rmsnorm(x, p["ff_norm"], cfg.norm_eps)
+        x = x + apply_ffn(p["ff"], h, ff)
+    return x
 
 
 def _unbind_layers(tree, n: int):
@@ -33,8 +45,8 @@ def _unbind_layers(tree, n: int):
 
 
 def decoder(cfg: ModelConfig, dparams: dict, x, *, positions):
-    _, n = cfg.scan_layers()
+    prefix, n = cfg.scan_layers()
     for lp in _unbind_layers(dparams["blocks"]["sub0"], n):
-        x = checkpoint(apply_layer, cfg, lp, x, positions=positions,
+        x = checkpoint(apply_layer, cfg, lp, x, prefix, positions=positions,
                        use_reentrant=False)
     return x

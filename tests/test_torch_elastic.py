@@ -23,10 +23,11 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 
 TOL = 5e-5
 JOB = dict(global_batch=8, seq_len=32, total_steps=12, seed=3)
+ARCHS = ["yi-6b", "mamba2-1.3b"]
 
 
-def _trainer(n_slots=4):
-    return ElasticTrainer(smoke_config("yi-6b"), TrainJobConfig(**JOB),
+def _trainer(n_slots=4, arch="yi-6b"):
+    return ElasticTrainer(smoke_config(arch), TrainJobConfig(**JOB),
                           local_slots(n_slots), device="cpu")
 
 
@@ -36,13 +37,14 @@ def _max_param_err(a_tree, b_flat):
     return max(float(np.max(np.abs(a[k] - np.asarray(b_flat[k])))) for k in a)
 
 
-def test_jax_checkpoint_restores_into_port_and_trajectories_agree(tmp_path):
-    jt = JTrainer(jsmoke_config("yi-6b"), JJob(**JOB), jax.devices()[:1])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_jax_checkpoint_restores_into_port_and_trajectories_agree(tmp_path, arch):
+    jt = JTrainer(jsmoke_config(arch), JJob(**JOB), jax.devices()[:1])
     for _ in range(2):
         jt.step()
     jt.save_disk(JDiskStore(str(tmp_path)), "job")
 
-    pt = _trainer(2)
+    pt = _trainer(2, arch)
     assert pt.restore_disk(DiskCheckpointStore(str(tmp_path)), "job") == 2
     assert _max_param_err(pt.params, jflatten(jax.device_get(jt.params))) == 0.0
     assert int(pt.opt_state["count"]) == 2
@@ -54,7 +56,7 @@ def test_jax_checkpoint_restores_into_port_and_trajectories_agree(tmp_path):
 
     # and back: the port's checkpoint restores into a fresh JAX trainer
     pt.save_disk(DiskCheckpointStore(str(tmp_path / "back")), "job", fused=True)
-    jt2 = JTrainer(jsmoke_config("yi-6b"), JJob(**JOB), jax.devices()[:1])
+    jt2 = JTrainer(jsmoke_config(arch), JJob(**JOB), jax.devices()[:1])
     assert jt2.restore_disk(JDiskStore(str(tmp_path / "back")), "job") == 5
     assert _max_param_err(pt.params, jflatten(jax.device_get(jt2.params))) == 0.0
     jopt = jflatten(jax.device_get(jt2.opt_state))
@@ -62,12 +64,13 @@ def test_jax_checkpoint_restores_into_port_and_trajectories_agree(tmp_path):
         assert np.asarray(jopt[k]).tobytes() == t.numpy().tobytes(), k
 
 
-def test_static_and_rescaled_runs_agree():
-    static = _trainer(4)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_static_and_rescaled_runs_agree(arch):
+    static = _trainer(4, arch)
     for _ in range(12):
         static.step()
     slots = local_slots(4)
-    el = _trainer(4)
+    el = _trainer(4, arch)
     for _ in range(4):
         el.step()
     t1 = el.rescale(slots[2:], via_host=True)      # shrink 4 -> 2, host lane
@@ -166,8 +169,9 @@ def test_bfloat16_leaves_are_refused_on_the_host_path(tmp_path):
         DiskCheckpointStore(str(tmp_path)).save("j", 0, tree)
 
 
-def test_train_cli_rescales_checkpoints_and_restarts(tmp_path, capsys):
-    args = ["--arch", "yi-6b", "--smoke", "--device", "cpu", "--devices", "4",
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_cli_rescales_checkpoints_and_restarts(tmp_path, capsys, arch):
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--devices", "4",
             "--global-batch", "8", "--seq-len", "32", "--log-every", "1",
             "--checkpoint-dir", str(tmp_path)]
     t = train_cli.main(args + ["--steps", "6", "--rescale-at", "2:2",

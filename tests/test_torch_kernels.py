@@ -74,7 +74,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.flash_attention(q, k, v)
     ops.rmsnorm(q, torch.ones(16))
     pack_leaves([q, k])
-    assert ops.launch_counts() == {"flash_attention": 0, "pack": 0, "rmsnorm": 0}
+    ops.ssd(q, torch.ones(1, 32, 4), torch.zeros(4), k[..., :8], k[..., 8:],
+            chunk=8)
+    assert ops.launch_counts() == {"flash_attention": 0, "pack": 0,
+                                   "rmsnorm": 0, "ssd": 0}
 
 
 def test_wrappers_refuse_devices_they_do_not_serve():

@@ -1,8 +1,12 @@
-"""The PyTorch port's dense yi-6b model against the JAX package on the CPU:
-configs, data stream, parameter keys and shapes, loss and every gradient.
+"""The PyTorch port's dense yi-6b and Mamba-2 mamba2-1.3b models against the
+JAX package on the CPU: configs, data stream, parameter keys and shapes, the
+init distributions, loss and every gradient.
 
 The JAX smoke parameters are carried across with ``from_numpy_flat``;
 tolerances are the reference's (loss 2e-5, gradients 1e-4)."""
+import dataclasses
+import math
+
 import numpy as np
 import pytest
 
@@ -11,6 +15,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.checkpoint.reshard import flatten_tree as jflatten  # noqa: E402
+from repro.configs import count_params as jcount_params  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
 from repro.data import make_stream as jmake_stream  # noqa: E402
@@ -22,15 +27,18 @@ from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
-FIELDS = ("name", "num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
-          "vocab_size", "resolved_head_dim", "padded_vocab", "rope_theta",
-          "norm_eps", "ff_kind", "dtype", "vocab_pad_to")
+ARCHS = ["yi-6b", "mamba2-1.3b"]
+FIELDS = ("name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
+          "d_ff", "vocab_size", "resolved_head_dim", "padded_vocab", "rope_theta",
+          "norm_eps", "ff_kind", "dtype", "vocab_pad_to", "default_mixer",
+          "attn_every", "attn_offset", "tie_embeddings", "supports_long_context",
+          "expected_params", "source")
 
 
-@pytest.fixture(scope="module")
-def smoke():
-    jcfg = jsmoke_config("yi-6b").with_(dtype="float32")
-    cfg = smoke_config("yi-6b").with_(dtype="float32")
+@pytest.fixture(scope="module", params=ARCHS)
+def smoke(request):
+    jcfg = jsmoke_config(request.param).with_(dtype="float32")
+    cfg = smoke_config(request.param).with_(dtype="float32")
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     flat = {k: np.asarray(v) for k, v in jflatten(jparams).items()}
     batch = make_stream(cfg, seed=1, global_batch=4, seq_len=32).global_batch_at(0)
@@ -38,14 +46,31 @@ def smoke():
     return jcfg, cfg, jparams, flat, batch
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("factory", ["get", "smoke"])
-def test_configs_match_reference(factory):
-    ours = (get_config if factory == "get" else smoke_config)("yi-6b")
-    ref = (jget_config if factory == "get" else jsmoke_config)("yi-6b")
+def test_configs_match_reference(factory, arch):
+    ours = (get_config if factory == "get" else smoke_config)(arch)
+    ref = (jget_config if factory == "get" else jsmoke_config)(arch)
     for f in FIELDS:
         assert getattr(ours, f) == getattr(ref, f), f
+    assert (ours.ssm is None) == (ref.ssm is None)
+    if ref.ssm is not None:
+        assert dataclasses.asdict(ours.ssm) == dataclasses.asdict(ref.ssm)
+    assert [ours.mixer_at(i) for i in range(ours.num_layers)] == \
+        [ref.mixer_at(i) for i in range(ref.num_layers)]
+    assert [ours.ff_at(i) for i in range(ours.num_layers)] == \
+        [ref.ff_at(i) for i in range(ref.num_layers)]
+    assert ours.layer_period() == ref.layer_period()
     assert ours.scan_layers() == ref.scan_layers()
-    assert smoke_config("yi-6b").padded_vocab == 256     # valid_vocab mask in use
+    assert smoke_config(arch).padded_vocab == 256        # valid_vocab mask in use
+
+
+def test_mamba2_full_size_param_count_equals_reference():
+    # 48 x 25,849,280 per layer + the tied 50432 x 2048 embedding + final norm
+    cfg = get_config("mamba2-1.3b")
+    assert M.param_count(cfg) == 1_344_052_224 == jcount_params(jget_config("mamba2-1.3b"))
+    assert "lm_head" not in M.param_shapes(cfg)
+    assert M.param_shapes(cfg)["decoder/blocks/sub0/mixer/in_proj"] == (48, 2048, 8512)
 
 
 def test_full_width_depth4_param_count():
@@ -83,6 +108,28 @@ def test_init_params_draw_reference_distributions():
     w = p["decoder/blocks/sub0/ff/w_down"]
     assert abs(float(w.detach().std()) - 512 ** -0.5) < 0.05 * 512 ** -0.5
     assert all(t.requires_grad for t in p.values())
+
+
+def test_hybrid_layouts_are_refused_until_their_slice():
+    hybrid = get_config("mamba2-1.3b").with_(attn_every=2, attn_offset=1)
+    assert hybrid.layer_period() == 2
+    with pytest.raises(NotImplementedError):
+        M.param_specs(hybrid)
+
+
+def test_mamba2_init_draws_reference_distributions():
+    cfg = smoke_config("mamba2-1.3b").with_(d_model=256, dtype="float32")
+    p = {k.split("/")[-1]: v.detach() for k, v in
+         flatten_tree(M.init_params(cfg, 0, device="cpu")).items()}
+    assert torch.all((p["a_log"] >= 0) & (p["a_log"] < math.log(16)))
+    dt = torch.nn.functional.softplus(p["dt_bias"])
+    assert torch.all((dt >= 1e-3 * (1 - 1e-5)) & (dt <= 1e-1 * (1 + 1e-5)))
+    assert float(p["conv_w"].abs().max()) <= 0.5          # 1 / sqrt(conv width)
+    assert float(p["conv_w"].abs().max()) > 0.45
+    assert torch.all(p["conv_b"] == 0) and torch.all(p["d_skip"] == 1)
+    assert torch.all(p["out_norm"] == 1)
+    w = p["out_proj"]                                       # fan_in d_inner = 512
+    assert abs(float(w.std()) - 512 ** -0.5) < 0.05 * 512 ** -0.5
 
 
 def test_from_and_to_numpy_flat_roundtrip(smoke):
