@@ -10,10 +10,16 @@ without a CUDA device the script exits non-zero before printing a result:
 
 1. the card (``nvidia-smi --query-gpu=name,power.limit``);
 2. the build of every ``src/repro_torch/csrc/*.cu`` (one nvcc per source,
-   all started together, with ``-Xptxas -v``) and the Triton JIT;
+   all started together, with ``-Xptxas -v``): each kernel's registers,
+   spill bytes and shared memory from ptxas, and, where a source exports
+   them, its registers, local bytes, shared bytes and resident blocks per SM
+   from the runtime; then the Triton JIT;
 3. each hand-written kernel against its plain PyTorch version on the card at
-   the main path's shapes: error, kernel / plain / library ms (CUDA events)
-   and the least time the card could take (bound);
+   the main path's shapes, in float32 (the paths' type) and, for flash
+   attention and the SSD scan, in bf16: error, kernel / plain / library ms
+   (CUDA events), the least time the card could take (bound), its share
+   (of_bound = bound / kernel) and the achieved TFLOP/s; for the SSD scan,
+   the device ms of each of its three launches (torch.profiler);
 4. the main paths, each an ElasticTrainer at global batch 8 x 2048 on 4
    logical replicas, stepped, shrunk to 2 on the host lane, stepped,
    expanded to 4 on the p2p lane, stepped; launch counts are zeroed just
@@ -28,11 +34,14 @@ without a CUDA device the script exits non-zero before printing a result:
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
 whose shapes it was measured at and holds its launches on that path; the
-pack kernel, which runs on both, has one record per path.
+pack kernel, which runs on both, has one record per path; the bf16
+instantiations of flash attention and the SSD scan, on no path, have
+records of their own with ``"path": null`` and 0 launches.
 """
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -104,6 +113,20 @@ def time_ms(fn, iters, warmup=2, reps=5):
     return sorted(rounds)[len(rounds) // 2]
 
 
+def dtype_name(dtype):
+    return None if dtype is None else str(dtype).split(".")[1]
+
+
+def record(name, path, dtype, source, replaces, err, ms, plain, lib, b_ms, b_by,
+           flops, route="cuda"):
+    """One entry of the kernels line: the kernel's times beside its bound,
+    the share of the bound it reaches and its rate."""
+    return {"name": name, "path": path, "dtype": dtype_name(dtype), "route": route,
+            "source": source, "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "of_bound": b_ms / ms, "tflops": flops / ms / 1e9}
+
+
 def bound(nbytes, flops, dtype):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -125,14 +148,17 @@ def card_line():
 
 def build_kernels():
     t0 = time.perf_counter()
-    logs = _build.build(force=True, verbose=True)
+    logs = _build.build(force=True)
     wall = time.perf_counter() - t0
+    check(set(logs) == set(_build.sources()), f"built {sorted(logs)}")
     for name, info in logs.items():
         say("build", source=f"{name}.cu", seconds=f"{info['seconds']:.1f}")
-        for line in info["log"].splitlines():
-            if "ptxas" in line:
-                print("  " + line.strip())
-    check(set(logs) == set(_build.sources()), f"built {sorted(logs)}")
+        kernels = _build.ptxas_report(info["log"])
+        check(kernels, f"no ptxas report for {name}.cu")
+        for k in kernels:
+            say("ptxas", **k)
+        for k in _build.kernel_info(name):
+            say("kernel_info", **k)
     x = torch.ones((1, 64), device="cuda")
     t1 = time.perf_counter()
     ops.rmsnorm(x, torch.ones(64, device="cuda"))
@@ -145,7 +171,7 @@ def build_kernels():
 
 def check_flash(gen):
     B, S, H, KV, hd = 2, 2048, 32, 4, 128         # one replica's shard at R=4
-    rec = {}
+    recs = []
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.randn((B, S, H, hd), device="cuda", generator=gen).to(dtype)
         k = torch.randn((B, S, KV, hd), device="cuda", generator=gen).to(dtype)
@@ -165,18 +191,20 @@ def check_flash(gen):
             qt, kt, vt, is_causal=True, enable_gqa=True), 10)
         flops = 4 * hd * B * H * S * (S + 1) // 2      # causal pairs only
         b_ms, b_by = bound(nbytes(q, k, v, out, lse), flops, dtype)
-        say("kernels", kernel="flash_attention", dtype=str(dtype).split(".")[1],
+        f32 = dtype == torch.float32                     # the main path's type
+        recs.append(record(
+            "flash_attention" if f32 else "flash_attention_bf16",
+            "yi-6b" if f32 else None, dtype,
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:26", err, ms, plain, lib,
+            b_ms, b_by, flops))
+        say("kernels", kernel="flash_attention", dtype=dtype_name(dtype),
             shape=f"B{B}xS{S}xH{H}xKV{KV}xhd{hd}", max_abs_err=err,
             lse_err=lse_err, ms=ms, plain_ms=plain, library_ms=lib,
-            bound_ms=b_ms, bound_by=b_by)
-        if dtype == torch.float32:                       # the main path's type
-            rec = {"name": "flash_attention", "path": "yi-6b", "route": "cuda",
-                   "source": "src/repro_torch/csrc/flash_attention.cu",
-                   "replaces": "src/repro/kernels/flash_attention.py:26",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            bound_ms=b_ms, bound_by=b_by, of_bound=recs[-1]["of_bound"],
+            tflops=recs[-1]["tflops"])
         del q, k, v, out, lse, qt, kt, vt
-    return rec
+    return recs
 
 
 def check_rmsnorm(gen):
@@ -192,11 +220,10 @@ def check_rmsnorm(gen):
     b_ms, b_by = bound(nbytes(x, w, y), 4 * x.numel(), torch.float32)
     say("kernels", kernel="rmsnorm", shape=f"{N}x{D}", max_abs_err=err, ms=ms,
         plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-    return {"name": "rmsnorm", "path": "yi-6b", "route": "triton",
-            "source": "src/repro_torch/kernels/rmsnorm.py",
-            "replaces": "src/repro/kernels/rmsnorm.py:11",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    return record("rmsnorm", "yi-6b", torch.float32,
+                  "src/repro_torch/kernels/rmsnorm.py",
+                  "src/repro/kernels/rmsnorm.py:11", err, ms, plain, lib, b_ms,
+                  b_by, 4 * x.numel(), route="triton")
 
 
 def pack_groups(cfg, gen):
@@ -249,11 +276,35 @@ def check_pack(cfg, gen):
         gb_moved=f"{moved / 1e9:.3f}", ms=ms, plain_ms=plain, library_ms=None,
         bound_ms=b_ms, bound_by=b_by)
     del groups
-    return {"name": "pack", "path": cfg.name, "route": "cuda",
-            "source": "src/repro_torch/csrc/pack.cu",
-            "replaces": "src/repro/kernels/pack.py:40", "max_abs_err": 0.0,
-            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+    return record("pack", cfg.name, None, "src/repro_torch/csrc/pack.cu",
+                  "src/repro/kernels/pack.py:40", 0.0, ms, plain, None, b_ms,
+                  b_by, 0)
+
+
+def kernel_times(prof):
+    """{kernel name: (launches, device ms)} from a finished profile, summed
+    over the raw events: a Mamba-2 step launches hundreds of thousands of
+    kernels, too many for ``key_averages()`` to group in the time limit."""
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            n, ms = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
+    return by_name
+
+
+def device_ms_by_kernel(fn, n=5):
+    """Device ms of each kernel that ``fn`` launches, per call, over ``n``
+    calls under ``torch.profiler`` (device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {name: ms / n for name, (_, ms) in kernel_times(prof).items()}
 
 
 def _ssd_inputs(gen, B, L, H, P, G, N, dtype, dt_shift=0.0):
@@ -278,7 +329,7 @@ def _ssd_err(out, exp, tol):
 
 def check_ssd(gen):
     B, L, H, P, G, N, Q = 2, 2048, 64, 64, 1, 128, 128   # one replica's shard at R=4
-    rec = {}
+    recs = []
     for dtype in (torch.float32, torch.bfloat16):
         args = _ssd_inputs(gen, B, L, H, P, G, N, dtype)
         y = ssd_scan_fwd(*args, chunk=Q)
@@ -286,21 +337,26 @@ def check_ssd(gen):
         check(frac <= 1.0, f"ssd {dtype} max_abs_err {err}: {frac} of the "
               f"allowance atol=rtol={SSD_TOL[dtype]}")
         ms = time_ms(lambda: ssd_scan_fwd(*args, chunk=Q), 10)
+        phases = {re.search(r"ssd_\w+_kernel", name).group(0): t for name, t in
+                  device_ms_by_kernel(lambda: ssd_scan_fwd(*args, chunk=Q)).items()}
+        check(len(phases) == 3, f"ssd launched {sorted(phases)}, not three phases")
+        say("kernels", kernel="ssd", dtype=dtype_name(dtype), phases_device_ms=json.dumps(
+            {k: round(v, 4) for k, v in phases.items()}).replace(" ", ""))
         plain = time_ms(lambda: ref.ssd_chunked_ref(*args, chunk=Q), 3, warmup=1)
         pairs = Q * (Q + 1) // 2                         # causal pairs only
         flops = B * H * (L // Q) * (2 * pairs * (N + P) + 4 * Q * N * P)
         b_ms, b_by = bound(nbytes(*args, y), flops, dtype)
-        say("kernels", kernel="ssd", dtype=str(dtype).split(".")[1],
+        f32 = dtype == torch.float32                     # the main path's type
+        recs.append(record(
+            "ssd" if f32 else "ssd_bf16", "mamba2-1.3b" if f32 else None, dtype,
+            "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:24",
+            err, ms, plain, None, b_ms, b_by, flops))
+        say("kernels", kernel="ssd", dtype=dtype_name(dtype),
             shape=f"B{B}xL{L}xH{H}xP{P}xG{G}xN{N}xQ{Q}", max_abs_err=err,
             atol_rtol=SSD_TOL[dtype], of_allowance=frac, ms=ms, plain_ms=plain,
             library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=flops,
-            bytes=nbytes(*args, y))
-        if dtype == torch.float32:                       # the main path's type
-            rec = {"name": "ssd", "path": "mamba2-1.3b", "route": "cuda",
-                   "source": "src/repro_torch/csrc/ssd_scan.cu",
-                   "replaces": "src/repro/kernels/ssd_scan.py:24",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            bytes=nbytes(*args, y), of_bound=recs[-1]["of_bound"],
+            tflops=recs[-1]["tflops"])
         del args, y
     # long memory: dt about 0.004 (the low end of Mamba-2's dt init), so
     # dt*A sums to a few units over a chunk and the state carried from
@@ -311,7 +367,7 @@ def check_ssd(gen):
                              ref.ssd_chunked_ref(*args, chunk=Q), SSD_TOL[dtype])
         check(frac <= 1.0, f"ssd {dtype} long memory: max_abs_err {err}")
         say("kernels", kernel="ssd", case="long_memory", dt_shift=-6.0,
-            dtype=str(dtype).split(".")[1], max_abs_err=err, of_allowance=frac)
+            dtype=dtype_name(dtype), max_abs_err=err, of_allowance=frac)
         del args
     # groups > 1 against the naive recurrence
     args = _ssd_inputs(gen, 2, 64, 4, 16, 2, 16, torch.float32)
@@ -320,7 +376,7 @@ def check_ssd(gen):
     check(frac <= 1.0, f"ssd G=2 vs the naive recurrence: max_abs_err {err}")
     say("kernels", kernel="ssd", vs="ssd_ref", shape="B2xL64xH4xP16xG2xN16xQ16",
         max_abs_err=err, of_allowance=frac)
-    return rec
+    return recs
 
 
 # -- phases 4 and 5 -----------------------------------------------------------------
@@ -379,8 +435,8 @@ def main_path(cfg):
     return counts
 
 
-KERNEL_GROUPS = (("ssd", ("ssd_scan_kernel",)),
-                 ("flash_attention", ("flash_fwd_kernel",)), ("pack", ("pack_kernel",)),
+KERNEL_GROUPS = (("ssd", ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")),
+                 ("flash_attention", ("flash_fwd_",)), ("pack", ("pack_kernel",)),
                  ("gemm", ("gemm", "xmma", "cutlass")), ("softmax", ("softmax",)),
                  ("reduce", ("reduce",)), ("index", ("index", "scatter", "gather")),
                  ("elementwise", ("elementwise",)))
@@ -398,10 +454,7 @@ def profile_step(t, top=8):
     """One more steady step at R=4 under torch.profiler: device busy share,
     device time by kernel group and the kernels that take the most (after
     the launch counts were read, so it does not add to them).  Only device
-    activity is traced, and the raw events are summed by name: a Mamba-2
-    step launches hundreds of thousands of kernels, too many for
-    ``key_averages()`` to group in the time limit."""
-    from torch.autograd import DeviceType
+    activity is traced."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -409,11 +462,7 @@ def profile_step(t, top=8):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     t1 = time.perf_counter()
-    by_name = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
-            n, ms = by_name.get(e.name(), (0, 0.0))
-            by_name[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
+    by_name = kernel_times(prof)
     busy_ms = sum(ms for _, ms in by_name.values())
     groups = {}
     for name, (_, ms) in by_name.items():
@@ -486,11 +535,11 @@ def main():
     paths = [get_config("yi-6b").with_(num_layers=4), get_config("mamba2-1.3b")]
     check(M.param_count(paths[1]) == MAMBA2_PARAMS,
           f"mamba2-1.3b has {M.param_count(paths[1])} parameters")
-    records = [check_flash(gen), check_rmsnorm(gen), check_ssd(gen)]
+    records = [*check_flash(gen), check_rmsnorm(gen), *check_ssd(gen)]
     records += [check_pack(cfg, gen) for cfg in paths]
     counts = {cfg.name: main_path(cfg) for cfg in paths}
     for rec in records:     # each record's launches on the path its shapes are from
-        rec["launches"] = counts[rec["path"]][rec["name"]]
+        rec["launches"] = counts[rec["path"]][rec["name"]] if rec["path"] else 0
     for cfg in paths:
         trajectory(cfg.name)
     for cfg in paths:

@@ -47,6 +47,17 @@ def _check(q, k, v):
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
 
 
+def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if the kernel's 16-byte copies can read it in place (last
+    dimension contiguous, other strides and the start 16-byte aligned), else a
+    contiguous copy."""
+    per16 = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % per16 == 0 for s in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -59,7 +70,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 ref.attention_lse_ref(q, k, causal=causal, scale=scale))
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (_rows_aligned(t) for t in (q, k, v))
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)

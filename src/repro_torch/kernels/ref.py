@@ -125,6 +125,49 @@ def ssd_chunked_ref(x, dt, a_log, b, c, *, chunk: int):
     return torch.cat(ys, dim=1).to(x.dtype)
 
 
+def ssd_split_ref(x, dt, a_log, b, c, *, chunk: int):
+    """The three phases of ``csrc/ssd_scan.cu`` in plain PyTorch: chunk
+    states, state passing, chunk scan.  Same function as ``ssd_chunked_ref``,
+    computed in the kernel's order.
+
+    x: (B,L,H,P); dt: (B,L,H) post-softplus; a_log: (H,); b,c: (B,L,G,N).
+    Returns (y (B,L,H,P) in x's type, the state passed out of the last chunk
+    (B,H,P,N) float32)."""
+    B, L, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    Q = min(chunk, L)
+    if L % Q or H % G:
+        raise ValueError(f"ssd needs L % chunk == 0 and H % G == 0, got "
+                         f"L={L}, chunk={Q}, H={H}, G={G}")
+    nc, rep = L // Q, H // G
+    A = -torch.exp(a_log.float())
+    xc = x.float().reshape(B, nc, Q, H, P)
+    dtc = dt.float().reshape(B, nc, Q, H)
+    bc = b.float().reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    cc = c.float().reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    # 1. chunk states: cumsum, and each chunk's own contribution to the state
+    cum = torch.cumsum(dtc * A, dim=2)                          # (B,nc,Q,H)
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dtc
+    states = torch.einsum("bcqh,bcqhn,bcqhp->bchpn", w, bc, xc)  # (B,nc,H,P,N)
+    # 2. state passing: the state that enters each chunk
+    h = x.new_zeros((B, H, P, N), dtype=torch.float32)
+    h_in = []
+    for ci in range(nc):
+        h_in.append(h)
+        h = h * torch.exp(cum[:, ci, -1, :])[..., None, None] + states[:, ci]
+    h_in = torch.stack(h_in, dim=1)                             # (B,nc,H,P,N)
+    # 3. chunk scan: masked before exp, as in ``_ssd_chunk``
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,nc,Q,Q,H)
+    decay = torch.exp(torch.where(tri[:, :, None], diff,
+                                  torch.full_like(diff, float("-inf"))))
+    scores = (torch.einsum("bcqhn,bckhn->bcqkh", cc, bc) * decay
+              * dtc[:, :, None, :, :])
+    y = (torch.einsum("bcqkh,bckhp->bcqhp", scores, xc)
+         + torch.einsum("bcqh,bcqhn,bchpn->bcqhp", torch.exp(cum), cc, h_in))
+    return y.reshape(B, L, H, P).to(x.dtype), h
+
+
 def rmsnorm_ref(x, w, eps: float = 1e-5):
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)

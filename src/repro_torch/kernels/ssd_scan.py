@@ -2,8 +2,11 @@
 
 Counterpart of ``repro.kernels.ssd_scan.ssd_chunked_pallas`` (the TPU
 kernel).  A CUDA tensor launches the hand-written kernel or raises; a CPU
-tensor takes the plain version ``ref.ssd_chunked_ref``.
-``ssd_scan_fwd.launches`` counts kernel launches and nothing else.
+tensor takes the plain version ``ref.ssd_chunked_ref``.  The kernel runs as
+three launches on the current stream (chunk states, state passing, chunk
+scan; ``ref.ssd_split_ref`` is their plain version), with scratch allocated
+here.  ``ssd_scan_fwd.launches`` counts wrapper calls that launched the
+kernel, and nothing else.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 @functools.lru_cache(maxsize=None)
 def _fn():
     fn = _build.load("ssd_scan").ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -73,12 +76,16 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     dt = dt.to(torch.float32).contiguous()
     a_log = a_log.to(torch.float32).contiguous()
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=x.device)
+    nc = L // Q         # scratch of the three phases: cumsums, chunk states
+    cum = torch.empty((B, nc, H, Q), dtype=torch.float32, device=x.device)
+    states = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=x.device)
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (x, b, c)
                                         for i in range(3)))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _fn()(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-                    c.data_ptr(), y.data_ptr(), B, L, H, G, P, N, Q, strides,
+                    c.data_ptr(), y.data_ptr(), cum.data_ptr(),
+                    states.data_ptr(), B, L, H, G, P, N, Q, strides,
                     _DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError(f"ssd_scan_fwd launch failed: cudaError {err}")

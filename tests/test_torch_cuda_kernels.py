@@ -58,6 +58,64 @@ def test_flash_kernel_non_causal_on_card():
                                atol=1e-4, rtol=1e-4)
 
 
+def _flash_against_plain(dev, dtype, B, S, H, KV, hd, causal):
+    """One launch of the flash kernel held against the plain version: output
+    at 2e-5 (float32) or 2e-2 (bf16), LSE at 1e-4, launches up by one."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dev, dt)
+               for a in _qkv(S + H + KV, B, S, H, KV, hd))
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert out.dtype == dt and tuple(out.shape) == (B, S, H, hd)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    exp = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                  causal=causal).to(dt)
+    torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(
+        lse, ref.attention_lse_ref(q.float(), k.float(), causal=causal),
+        atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (1, 2048, 32, 4, 128, True),          # the yi-6b path's shape
+    (1, 100, 8, 2, 128, True),            # S not a multiple of the tiles
+    (1, 1000, 8, 2, 128, True),
+    (1, 1000, 4, 4, 64, True),            # G = 1
+    (1, 300, 8, 1, 128, True),            # G = 8
+    (2, 200, 4, 2, 32, False)])
+def test_flash_kernel_redesign_shapes_on_card(dtype, B, S, H, KV, hd, causal):
+    _flash_against_plain(_card(), dtype, B, S, H, KV, hd, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hd", [(96, 32), (1000, 128)])
+def test_flash_kernel_non_causal_bf16_on_card(S, hd):
+    _flash_against_plain(_card(), "bfloat16", 2, S, 8, 2, hd, False)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_and_misaligned_views_on_card():
+    dev = _card()
+    q, k, v = (torch.from_numpy(a).to(dev) for a in _qkv(5, 1, 160, 8, 2, 64))
+    # q, k, v as slices of one fused projection, then shifted by one element
+    fused = torch.cat([q.reshape(1, 160, -1), k.reshape(1, 160, -1),
+                       v.reshape(1, 160, -1)], dim=-1)
+    odd = torch.cat([fused.new_zeros(1, 160, 1), fused], dim=-1)[..., 1:]
+    for t in (fused, odd):
+        qs = t[..., :512].reshape(1, 160, 8, 64)
+        ks = t[..., 512:640].reshape(1, 160, 2, 64)
+        vs = t[..., 640:].reshape(1, 160, 2, 64)
+        before = flash_attention_fwd.launches
+        out, _ = flash_attention_fwd(qs, ks, vs)
+        assert flash_attention_fwd.launches == before + 1
+        torch.testing.assert_close(out, ref.flash_attention_ref(q, k, v),
+                                   atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel_matches_plain_on_card(dtype):
@@ -159,3 +217,55 @@ def test_ssd_kernel_reads_strided_views_and_survives_large_decay():
         exp = ref.ssd_chunked_ref(x, d, a_log, b, c, chunk=64)
         assert torch.isfinite(out).all()
         torch.testing.assert_close(out, exp, atol=1e-4, rtol=1e-4)
+
+
+def _ssd_against_plain(x, dt, a_log, b, c, chunk, exp_inputs=None):
+    """One launch of the SSD kernel held against ``ssd_chunked_ref`` and the
+    plain split, at the reference's tolerance; launches up by one."""
+    tol = 1e-4 if x.dtype == torch.float32 else 5e-2   # tests/test_kernels.py:79
+    before = ssd_scan_fwd.launches
+    out = ssd_scan_fwd(x, dt, a_log, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan_fwd.launches == before + 1 and out.dtype == x.dtype
+    assert torch.isfinite(out).all()
+    args = exp_inputs or (x, dt, a_log, b, c)
+    for exp in (ref.ssd_chunked_ref(*args, chunk=chunk),
+                ref.ssd_split_ref(*args, chunk=chunk)[0]):
+        torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [128, 256, 2048])      # nc = 1, 2 and 16 chunks
+def test_ssd_kernel_chunk_counts_at_shard_widths_on_card(dtype, L):
+    dev = _card()
+    x, dt, a_log, b, c = _ssd_inputs(dev, L, 1, L, 8, 64, 1, 128)
+    dt_ = getattr(torch, dtype)
+    _ssd_against_plain(x.to(dt_), dt, a_log, b.to(dt_), c.to(dt_), 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt_shift", [0.0, -6.0])
+def test_ssd_kernel_three_groups_on_card(dt_shift):
+    dev = _card()
+    _ssd_against_plain(*_ssd_inputs(dev, 9, 2, 384, 6, 64, 3, 128,
+                                    dt_shift=dt_shift), 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])          # 1: rows not 16-byte aligned
+@pytest.mark.parametrize("scale", [1.0, 20.0])       # 20: decay past exp's limit
+def test_ssd_kernel_strided_views_and_large_decay_on_card(offset, scale):
+    dev = _card()
+    B, L, H, P, N = 2, 512, 8, 64, 128
+    x, dt, a_log, b, c = _ssd_inputs(dev, 4, B, L, H, P, 1, N)
+    dt = dt * scale
+    if scale > 1:    # dt*A sums far past fp32's exp limit within a chunk
+        assert float((dt[:, :128] * torch.exp(a_log)).sum(1).max()) > 89.0
+    fused = torch.cat([x.new_zeros(B, L, offset), x.reshape(B, L, -1),
+                       b.reshape(B, L, -1), c.reshape(B, L, -1)], dim=-1)
+    xs = fused[..., offset:offset + H * P].reshape(B, L, H, P)
+    bs = fused[..., offset + H * P:offset + H * P + N].reshape(B, L, 1, N)
+    cs = fused[..., offset + H * P + N:].reshape(B, L, 1, N)
+    assert not xs.is_contiguous()
+    _ssd_against_plain(xs, dt, a_log, bs, cs, 128, exp_inputs=(x, dt, a_log, b, c))

@@ -18,8 +18,9 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.pack import (pack_leaves_pallas,  # noqa: E402
                                 packed_snapshot_to_host)
 from repro_torch.checkpoint.reshard import snapshot_to_host  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (_rows_aligned,  # noqa: E402
+                                                 flash_attention_fwd)
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 
 
@@ -91,6 +92,41 @@ def test_wrappers_refuse_devices_they_do_not_serve():
         pack_leaves([q])
     with pytest.raises(ValueError):           # head_dim the kernel lacks
         flash_attention_fwd(*(torch.zeros(1, 8, 2, 24) for _ in range(3)))
+
+
+def test_flash_wrapper_copies_only_views_its_copies_cannot_read():
+    fused = torch.zeros((2, 8, 3 * 64 + 1))
+    skewed = fused[..., :128].reshape(2, 8, 2, 64)         # rows 193 floats apart
+    assert _rows_aligned(skewed) is not skewed
+    base = torch.zeros((2, 8, 4 * 64 + 4))
+    good = base[..., 4:260].reshape(2, 8, 4, 64)           # 16-byte offset
+    assert _rows_aligned(good) is good
+    odd = base[..., 1:257].reshape(2, 8, 4, 64)
+    copy = _rows_aligned(odd)
+    assert copy is not odd and copy.is_contiguous() and torch.equal(copy, odd)
+    bf = torch.zeros((1, 4, 2, 32), dtype=torch.bfloat16)
+    assert _rows_aligned(bf) is bf
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 16 bytes smem, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 356 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_smem_and_spills():
+    assert _build.ptxas_report(PTXAS_LOG) == [
+        {"kernel": "_Z6kernelPf", "registers": 168, "smem_static": 16,
+         "spill_stores": 4, "spill_loads": 12},
+        {"kernel": "_Z5otherv", "registers": 40, "smem_static": 0,
+         "spill_stores": 0, "spill_loads": 0}]
+    assert "-v" in _build.NVCC_FLAGS and "-Xptxas" in _build.NVCC_FLAGS
 
 
 # -- rmsnorm ------------------------------------------------------------------

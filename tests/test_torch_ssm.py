@@ -157,3 +157,43 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take():
     meta = [t.to("meta") for t in (x, dt, a_log, b, c)]
     with pytest.raises(ValueError):           # neither cuda nor cpu
         ssd_scan_fwd(*meta, chunk=8)
+
+
+# -- the kernel's three-phase split, in plain PyTorch --------------------------
+
+SPLIT_SHAPES = SHAPES + [(2, 32, 4, 16, 2, 16, 32),     # nc = 1 (L = chunk)
+                         (1, 24, 6, 8, 3, 8, 64)]       # L < chunk: Q = L
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", SPLIT_SHAPES)
+def test_ssd_split_ref_matches_jax_chunked_and_final_state(B, L, H, P, G, N, chunk):
+    x, dt, a_log, b, c = _ssd_inputs(5 * L + G, B, L, H, P, G, N)
+    y, h = ref.ssd_split_ref(*map(torch.from_numpy, (x, dt, a_log, b, c)),
+                             chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jssm.ssd_chunked(
+        x, dt, a_log, b, c, chunk=chunk)), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jssm.ssd_final_state(
+        x, dt, a_log, b, chunk=chunk)), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,L,H,P,G,N,chunk", SPLIT_SHAPES)
+@pytest.mark.parametrize("dt_shift", [0.0, -6.0])     # -6: long memory
+def test_ssd_split_ref_matches_chunked_ref(B, L, H, P, G, N, chunk, dt_shift):
+    ts = map(torch.from_numpy, _ssd_inputs(L + 3 * G, B, L, H, P, G, N,
+                                           dt_shift=dt_shift))
+    x, dt, a_log, b, c = ts
+    y, _ = ref.ssd_split_ref(x, dt, a_log, b, c, chunk=chunk)
+    torch.testing.assert_close(y, ref.ssd_chunked_ref(x, dt, a_log, b, c,
+                                                      chunk=chunk),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_ssd_split_ref_passes_no_overflow_past_the_exp_limit():
+    """The state passing multiplies by exp(cum_Q), which underflows to 0 for
+    a large decay; it never divides by it, so y stays finite and agrees."""
+    x, dt, a_log, b, c = map(torch.from_numpy, _ssd_inputs(
+        11, 1, 128, 4, 16, 1, 16, dt_shift=3.0, a_max=16.0))
+    y, h = ref.ssd_split_ref(x, dt, a_log, b, c, chunk=32)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    torch.testing.assert_close(y, ref.ssd_chunked_ref(x, dt, a_log, b, c, chunk=32),
+                               atol=1e-5, rtol=1e-5)
