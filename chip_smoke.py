@@ -29,15 +29,27 @@ without a CUDA device the script exits non-zero before printing a result:
    full published size (48 layers, 1,344,052,224 parameters);
 5. a static vs rescaled trajectory check at depth 1, for each path;
 6. ``repro_torch.launch.train --smoke`` on the card with ``--rescale-at``,
-   ``--checkpoint-dir`` and ``--restart``, for each arch.
+   ``--checkpoint-dir`` and ``--restart``, for each arch;
+7. the live operator (``ElasticClusterController``) at full width, with
+   the launch counts zeroed before the phase and read after it: scenario A
+   (priority shrink and expand-back of two yi-6b depth-4 jobs on 8 logical
+   slots, then the low job's static run, losses within ``TRAJ_LOSS_TOL``)
+   and scenario B (a Mamba-2 victim at depth 8 beside a yi-6b neighbor on
+   two nodes of 4: a fused async checkpoint under an in-place step, a node
+   failure and restart from disk, a drain migration on the host lane).  The
+   ``[operator]`` lines give each rescale's stages and path, each
+   scenario's ``ScheduleMetrics.row()``, peak memory, live trainers and
+   seconds, and the launches against those the steps imply.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
-whose shapes it was measured at and holds its launches on that path; the
-pack kernel, which runs on both, has one record per path; the bf16
-instantiations of flash attention and the SSD scan, on no path, have
-records of their own with ``"path": null`` and 0 launches.
+whose shapes it was measured at and holds its launches on that path, and
+its launches on the operator path (``operator_launches``); the pack kernel,
+which runs on both, has one record per path; the bf16 instantiations of
+flash attention and the SSD scan, on no path, have records of their own
+with ``"path": null`` and 0 launches.
 """
+import gc
 import json
 import math
 import os
@@ -54,10 +66,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # keep Triton's compile cache inside the checkout's ignored build directory
 os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton"))
 
-from repro_torch.checkpoint.reshard import flatten_tree  # noqa: E402
+from repro_torch.checkpoint import DiskCheckpointStore, flatten_tree  # noqa: E402
 from repro_torch.configs import ATTN, get_config  # noqa: E402
-from repro_torch.core.elastic import (ElasticTrainer, TrainJobConfig,  # noqa: E402
-                                      local_slots)
+from repro_torch.core import (ElasticClusterController, ElasticTrainer,  # noqa: E402
+                              JobSpec, JobStatus, PolicyConfig, TrainJobConfig,
+                              local_slots)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
@@ -82,6 +95,16 @@ MAMBA2_PARAMS = 1_344_052_224
 # near eps into a visible step, so params get a looser bound than losses
 TRAJ_LOSS_TOL = 1e-4
 TRAJ_PARAM_TOL = 1e-3
+# the operator's Mamba-2 victim: full width, 8 of the 48 layers (about 3.1e8
+# parameters), so its checkpoints stay a few GB and it fits beside a yi-6b job
+OPERATOR_MAMBA2_LAYERS = 8
+# the operator's full-width jobs train at a peak rate of 3e-4, LLaMA 2's for
+# its 7B decoder (arXiv:2307.09288, table 1); TrainJobConfig's default 3e-3
+# is sized for the smoke configs and makes the full-width yi-6b loss climb
+# (11.48 to 13.93 over 10 steps on an NVIDIA H100 80GB HBM3 at 700 W), which
+# amplifies the rounding differences between replica counts past
+# TRAJ_LOSS_TOL
+OPERATOR_JOB = dict(global_batch=8, seq_len=2048, peak_lr=3e-4)
 
 
 def check(cond, msg):
@@ -518,6 +541,280 @@ def train_cli_smoke(arch):
     say("cli", arch=arch, rescales=[r.path for r in t1.rescale_log], losses=len(losses))
 
 
+# -- phase 7 -------------------------------------------------------------------------
+
+def trainer_factory(cfg, job, device):
+    """The operator's factory: slots -> a trainer of ``cfg`` on ``device``."""
+    return lambda slots: ElasticTrainer(cfg, job, slots, device=device)
+
+
+def live_trainers(op):
+    return sum(1 for live in op.live.values() if live.trainer is not None)
+
+
+def say_rescales(scenario, op):
+    for t, job_id, old, new, timings in op.rescale_events:
+        say("operator", scenario=scenario, t=f"{t:.3f}", job=job_id,
+            rescale=f"{old}->{new}", path=timings.path,
+            **{k: f"{v:.4f}" for k, v in timings.as_dict().items()})
+
+
+def scenario_priority(cfg, low_job, high_job, device):
+    """Scenario A, priority shrink and expand-back (paper Figs. 2 and 3): 8
+    logical slots on one node; "low" (priority 1, R 2..8) starts alone on all
+    8, "high" (priority 5, R 4..8) arrives after the first tick and shrinks
+    it, and low expands back when high completes.  The operator's clock is
+    the wall clock (no ``step_time_fn``).  Returns the controller and its
+    ``ScheduleMetrics``; the trainers stay resident, as the reference's do."""
+    op = ElasticClusterController(local_slots(8), slots=8,
+                                  policy=PolicyConfig(rescale_gap=0.0),
+                                  steps_per_tick=2)
+    op.submit(JobSpec("low", 1, 2, 8, 0.0, divides=8),
+              trainer_factory(cfg, low_job, device))
+    op.submit(JobSpec("high", 5, 4, 8, 0.001, divides=8),
+              trainer_factory(cfg, high_job, device))
+    m = op.run()
+    low, high = op.cluster.jobs["low"], op.cluster.jobs["high"]
+    check(low.status == JobStatus.COMPLETED and high.status == JobStatus.COMPLETED,
+          f"scenario A: low {low.status}, high {high.status}")
+    moves = [(old, new) for _, job_id, old, new, _ in op.rescale_events
+             if job_id == "low"]
+    check(len(moves) >= 2 and moves[0][0] > moves[0][1] and moves[-1][0] < moves[-1][1],
+          f"scenario A: low must shrink for high, then expand back: {moves}")
+    check(op.live["low"].trainer.step_idx == low_job.total_steps
+          and op.live["high"].trainer.step_idx == high_job.total_steps,
+          "scenario A: step counts")
+    return op, m
+
+
+def static_run(cfg, job, device, replicas=8):
+    """The same job, built by the same factory, stepped to its end on a
+    fixed slot set."""
+    t = trainer_factory(cfg, job, device)(local_slots(replicas))
+    while not t.done:
+        t.step()
+    return t
+
+
+def chosen_leaves(trainer):
+    """Host copies of the embedding and of layer 0 of every stacked block
+    leaf, as ``{key: (index, bytes)}``."""
+    out = {}
+    for k, v in flatten_tree(trainer.params).items():
+        if k == "embed":
+            out["params/embed"] = (slice(None), v.detach().cpu().numpy().tobytes())
+        elif k.startswith("decoder/blocks/"):
+            out[f"params/{k}"] = (0, v[0].detach().cpu().numpy().tobytes())
+    return out
+
+
+def state_nbytes(trainer):
+    return sum(t.numel() * t.element_size()
+               for t in flatten_tree(trainer.state_tree()).values())
+
+
+def scenario_faults(victim_cfg, victim_job, neighbor_cfg, neighbor_job, device,
+                    ckpt_root):
+    """Scenario B, fault tolerance and node operations (paper §3.2.2): 8
+    slots as two nodes of 4; "victim" (priority 3, R 2..4) and "neighbor"
+    (priority 2, R 2..4) fill one node each.  After a first tick (one step
+    each, by hand, as ``tests/helpers/operator_scenario.py`` drives it):
+
+    1. a synchronous ``save_disk`` of the victim (timed), then a fused
+       ``save_disk_async`` of the same step, an in-place step at once, the
+       barrier, and the checkpoint held byte for byte against host copies of
+       chosen leaves taken before the step;
+    2. ``inject_node_failure`` on the victim's node: its trainer is dropped
+       (on the card: the memory comes back) and it is requeued with the
+       restart flag;
+    3. ``recover_node`` on that node, then ``drain_node`` on the neighbor's
+       node: the neighbor migrates onto the recovered node's disjoint slots,
+       which takes the host lane; then that node is recovered too;
+    4. ``run()``: the victim restarts from the checkpoint's step
+       (``restore_disk``) and both complete.
+
+    Returns the controller, its ``ScheduleMetrics``, the launch record of
+    the victim's first trainer (``trainer_record``; the trainer itself is
+    dropped) and the checkpoint timings."""
+    store = DiskCheckpointStore(ckpt_root)
+    op = ElasticClusterController(local_slots(8), slots=8, slots_per_node=4,
+                                  policy=PolicyConfig(rescale_gap=0.0),
+                                  disk_store=store, steps_per_tick=1)
+    op.submit(JobSpec("victim", 3, 2, 4, 0.0, divides=8),
+              trainer_factory(victim_cfg, victim_job, device))
+    op.submit(JobSpec("neighbor", 2, 2, 4, 0.0, divides=8),
+              trainer_factory(neighbor_cfg, neighbor_job, device))
+    op._process_submissions()
+    home = {j: [n for n in op.cluster.nodes() if j in op.cluster.residents(n)]
+            for j in ("victim", "neighbor")}
+    check(len(home["victim"]) == 1 and len(home["neighbor"]) == 1
+          and home["victim"] != home["neighbor"],
+          f"scenario B: each job should fill one node: {home}")
+    for job_id in ("victim", "neighbor"):
+        op.live[job_id].trainer.step()
+
+    victim = op.live["victim"].trainer
+    timings = {"save_s": victim.save_disk(store, "victim")}
+    timings["save_bytes"] = store.last_bytes_written
+    before = chosen_leaves(victim)
+    t0 = time.perf_counter()
+    victim.save_disk_async(store, "victim", fused=True)
+    timings["async_submit_s"] = time.perf_counter() - t0
+    ckpt_step = victim.step_idx
+    victim.step()                       # in place, while the write is in flight
+    t0 = time.perf_counter()
+    victim.ckpt_barrier()
+    timings["async_barrier_s"] = time.perf_counter() - t0
+    flat, manifest = store.load("victim")
+    check(manifest["step"] == ckpt_step, f"checkpoint step {manifest['step']}")
+    after = chosen_leaves(victim)
+    for k, (idx, raw) in before.items():
+        check(flat[k][idx].tobytes() == raw,
+              f"scenario B: checkpoint leaf {k} is not the pre-step state")
+    check(any(after[k][1] != raw for k, (_, raw) in before.items()),
+          "scenario B: the step after the snapshot changed none of the chosen leaves")
+    del flat, after
+    dropped = trainer_record(victim)
+    timings["snapshot_packs"] = dtype_groups(victim.state_tree())
+    victim_bytes = state_nbytes(victim)
+    del victim
+
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    held = torch.cuda.memory_allocated() if on_card else 0
+    (node,) = home["victim"]
+    check(op.inject_node_failure(node) == ["victim"], "scenario B: failure victims")
+    check(op.live["victim"].trainer is None, "scenario B: the victim's trainer survived")
+    gc.collect()
+    if on_card:
+        timings["freed_gb"] = (held - torch.cuda.memory_allocated()) / 1e9
+        check(held - torch.cuda.memory_allocated() >= victim_bytes,
+              f"scenario B: failure freed {timings['freed_gb']:.3f} GB of the "
+              f"victim's {victim_bytes / 1e9:.3f} GB")
+    op.recover_node(node)
+
+    neighbor = op.live["neighbor"].trainer
+    (nnode,) = home["neighbor"]
+    op.drain_node(nnode)
+    check(not op.cluster.residents(nnode), "scenario B: the drained node is not empty")
+    check(neighbor.rescale_log and neighbor.rescale_log[-1].path == "host",
+          f"scenario B: the drain migration took {neighbor.rescale_log[-1:]}")
+    check(op.cluster.jobs["neighbor"].replicas == 4, "scenario B: the neighbor shrank")
+    del neighbor
+    op.recover_node(nnode)
+
+    m = op.run()
+    for job_id, job in (("victim", victim_job), ("neighbor", neighbor_job)):
+        check(op.cluster.jobs[job_id].status == JobStatus.COMPLETED,
+              f"scenario B: {job_id} {op.cluster.jobs[job_id].status}")
+        check(op.live[job_id].trainer.step_idx == job.total_steps,
+              f"scenario B: {job_id} step {op.live[job_id].trainer.step_idx}")
+    resumed = op.live["victim"].trainer
+    check(op.live["victim"].failures == 1 and resumed.metrics_log[0]["step"] == ckpt_step + 1,
+          f"scenario B: the victim did not resume from step {ckpt_step}")
+    timings["ckpt_step"] = ckpt_step
+    return op, m, dropped, timings
+
+
+def dtype_groups(tree):
+    """Pack launches of one fused snapshot of ``tree``: one per dtype group
+    of its non-empty leaves (``packed_snapshot_to_host``)."""
+    return len({t.dtype for t in flatten_tree(tree).values() if t.numel()})
+
+
+def trainer_record(t):
+    """What a trainer's steps and rescales imply for the launch counts."""
+    host = sum(r.path == "host" for r in t.rescale_log)
+    return {"cfg": t.cfg, "replicas": [m["replicas"] for m in t.metrics_log],
+            "host_packs": host * (dtype_groups(t.params) + dtype_groups(t.opt_state))}
+
+
+def expected_launches(records, snapshot_packs):
+    """{kernel: launches} that the recorded steps, host-lane rescales and
+    fused snapshots imply: a step launches its mixer's kernel twice per layer
+    and replica (forward and the per-layer recompute)."""
+    out = {"flash_attention": 0, "pack": snapshot_packs, "rmsnorm": 0, "ssd": 0}
+    for rec in records:
+        kernel = "flash_attention" if rec["cfg"].mixer_at(0) == ATTN else "ssd"
+        out[kernel] += 2 * rec["cfg"].num_layers * sum(rec["replicas"])
+        out["pack"] += rec["host_packs"]
+    return out
+
+
+def operator_phase(yi_cfg, victim_cfg):
+    """Phase 7: the live operator at full width on the card, scenarios A and
+    B, with the launch counts zeroed before and read after the phase."""
+    t_phase = time.perf_counter()
+    device = "cuda"
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    records = []
+
+    def scenario_end(name, op, m, t0):
+        say_rescales(name, op)
+        say("operator", scenario=name, clock="wall (no step_time_fn)",
+            live_trainers=live_trainers(op),
+            peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            seconds=f"{time.perf_counter() - t0:.1f}")
+        say("operator", scenario=name, metrics=m.row().replace(" ", "_"))
+        check(torch.cuda.max_memory_allocated() < 80e9, "peak memory past 80 GB")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    low_job = TrainJobConfig(total_steps=10, seed=0, **OPERATOR_JOB)
+    high_job = TrainJobConfig(total_steps=4, seed=1, **OPERATOR_JOB)
+    op, m = scenario_priority(yi_cfg, low_job, high_job, device)
+    scenario_end("A", op, m, t0)
+    records += [trainer_record(live.trainer) for live in op.live.values()]
+    low_losses = [x["loss"] for x in op.live["low"].trainer.metrics_log]
+    del op
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    static = static_run(yi_cfg, low_job, device)
+    records.append(trainer_record(static))
+    static_losses = [x["loss"] for x in static.metrics_log]
+    del static
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = [abs(a - b) for a, b in zip(low_losses, static_losses)]
+    lerr = max(errs)
+    say("operator", scenario="A", static_replicas=8, loss_err=lerr,
+        loss_err_by_step=json.dumps([float(f"{e:.3g}") for e in errs]).replace(" ", ""),
+        loss_tol=TRAJ_LOSS_TOL, loss_first=low_losses[0], loss_last=low_losses[-1],
+        static_seconds=f"{time.perf_counter() - t0:.1f}")
+    check(lerr <= TRAJ_LOSS_TOL, f"scenario A: low vs its static run, loss err {lerr}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    victim_job = TrainJobConfig(total_steps=4, seed=2, **OPERATOR_JOB)
+    neighbor_job = TrainJobConfig(total_steps=4, seed=3, **OPERATOR_JOB)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        op, m, dropped, timings = scenario_faults(victim_cfg, victim_job, yi_cfg,
+                                                  neighbor_job, device, d)
+    say("operator", scenario="B", **{k: f"{v:.4f}" if isinstance(v, float) else v
+                                     for k, v in timings.items()})
+    scenario_end("B", op, m, t0)
+    records += [trainer_record(live.trainer) for live in op.live.values()]
+    records.append(dropped)
+    del op
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expected = expected_launches(records, timings["snapshot_packs"])
+    say("operator", launches=json.dumps(counts).replace(" ", ""),
+        expected=json.dumps(expected).replace(" ", ""),
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    for kernel in ("flash_attention", "ssd", "pack"):
+        check(expected[kernel] > 0, f"the operator path implies no {kernel} launch")
+        check(counts[kernel] == expected[kernel],
+              f"operator path: {kernel} launches {counts[kernel]} != {expected[kernel]}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -544,6 +841,9 @@ def main():
         trajectory(cfg.name)
     for cfg in paths:
         train_cli_smoke(cfg.name)
+    op_counts = operator_phase(paths[0], paths[1].with_(num_layers=OPERATOR_MAMBA2_LAYERS))
+    for rec in records:
+        rec["operator_launches"] = op_counts[rec["name"]] if rec["path"] else 0
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": records}))

@@ -24,10 +24,11 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.checkpoint.async_ckpt import AsyncCheckpointer
 from repro_torch.checkpoint.reshard import (restore_from_host,
                                             snapshot_to_host,
                                             surviving_devices, tree_leaves,
@@ -93,6 +94,7 @@ class ElasticTrainer:
         self.adamw = AdamWConfig()
         self.metrics_log: List[dict] = []
         self.rescale_log: List[RescaleTimings] = []
+        self._async_ckpt: Optional[AsyncCheckpointer] = None
 
         t0 = time.perf_counter()
         self._step_cache: Dict[tuple, dict] = {}
@@ -219,13 +221,35 @@ class ElasticTrainer:
     # -- fault tolerance (paper §3.2.2) ----------------------------------------
     def state_tree(self) -> dict:
         return {"params": self.params, "opt": self.opt_state,
-                "step": torch.tensor(self.step_idx, dtype=torch.int32)}
+                "step": torch.tensor(self.step_idx, dtype=torch.int32,
+                                     device=self.device)}
 
     def save_disk(self, store, job_id: str, *, delta: bool = False,
                   fused: bool = False) -> float:
         return store.save(job_id, self.step_idx, self.state_tree(),
                           meta={"replicas": self.replicas}, delta=delta,
                           fused=fused)
+
+    def save_disk_async(self, store, job_id: str, *, delta: bool = True,
+                        fused: bool = False) -> None:
+        """Copy the state to host now, write it to disk in the background.
+
+        Returns once the host copy is complete, so ``step()`` may run at
+        once: its in-place updates cannot reach the checkpoint.  Call
+        ``ckpt_barrier()`` before the job's slots are released (preempt) so
+        ``latest_step`` is a fully published checkpoint."""
+        if self._async_ckpt is None or self._async_ckpt.store is not store:
+            if self._async_ckpt is not None:
+                self._async_ckpt.close()
+            self._async_ckpt = AsyncCheckpointer(store, delta=delta)
+        self._async_ckpt.delta = delta
+        self._async_ckpt.submit(job_id, self.step_idx, self.state_tree(),
+                                meta={"replicas": self.replicas}, fused=fused)
+
+    def ckpt_barrier(self) -> None:
+        """Join all pending async checkpoint writes (preempt-time barrier)."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.barrier()
 
     def restore_disk(self, store, job_id: str) -> int:
         """Restart from the latest disk checkpoint (written by the port or by

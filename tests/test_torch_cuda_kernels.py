@@ -10,6 +10,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
+                                    DiskCheckpointStore, flatten_tree)
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.core.elastic import (ElasticTrainer, TrainJobConfig,  # noqa: E402
+                                      local_slots)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
@@ -269,3 +274,53 @@ def test_ssd_kernel_strided_views_and_large_decay_on_card(offset, scale):
     cs = fused[..., offset + H * P + N:].reshape(B, L, 1, N)
     assert not xs.is_contiguous()
     _ssd_against_plain(xs, dt, a_log, bs, cs, 128, exp_inputs=(x, dt, a_log, b, c))
+
+
+@pytest.mark.cuda
+def test_fused_async_snapshot_lands_the_pre_update_bytes_on_card(tmp_path):
+    """``AsyncCheckpointer.submit(fused=True)`` returns only after the packed
+    device-to-host copy is complete: an in-place update launched at once
+    does not reach the checkpoint, and the one float32 group is one pack
+    launch."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn((4096, 1024), device=dev, generator=gen),
+            "b": torch.randn((1000,), device=dev, generator=gen)}
+    want = {k: v.cpu().numpy().tobytes() for k, v in tree.items()}
+    store = DiskCheckpointStore(str(tmp_path))
+    ac = AsyncCheckpointer(store)
+    before = pack_leaves.launches
+    ac.submit("j", 1, tree, fused=True)
+    assert pack_leaves.launches == before + 1
+    for v in tree.values():
+        v.mul_(2.0).add_(1.0)
+    ac.close()
+    flat, _ = store.load("j")
+    assert {k: flat[k].tobytes() for k in want} == want
+    assert tree["w"].cpu().numpy().tobytes() != want["w"]
+
+
+@pytest.mark.cuda
+def test_trainer_save_disk_async_then_step_on_card(tmp_path):
+    """The trainer's fused ``save_disk_async`` followed at once by an
+    in-place ``step()``: the checkpoint holds the pre-step state, and the
+    snapshot launched the pack kernel once per dtype group (float32
+    parameters and moments, int32 counts)."""
+    dev = _card()
+    t = ElasticTrainer(smoke_config("yi-6b"),
+                       TrainJobConfig(global_batch=8, seq_len=32, total_steps=4),
+                       local_slots(2), device=dev)
+    t.step()
+    want = {k: v.detach().cpu().numpy().tobytes()
+            for k, v in flatten_tree(t.state_tree()).items()}
+    store = DiskCheckpointStore(str(tmp_path))
+    before = pack_leaves.launches
+    t.save_disk_async(store, "j", fused=True)
+    assert pack_leaves.launches == before + 2
+    t.step()
+    t.ckpt_barrier()
+    flat, manifest = store.load("j")
+    assert manifest["step"] == 1
+    assert {k: flat[k].tobytes() for k in want} == want
+    assert t.params["embed"].detach().cpu().numpy().tobytes() != want["params/embed"]
+    t._async_ckpt.close()

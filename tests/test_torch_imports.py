@@ -32,8 +32,19 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not loaded, loaded
+print("MODULES", " ".join(names))
 print("IMPORTED", len(names))
 """
+
+# the live operator's slice: the scheduler modules copied from the JAX
+# package, the async checkpointer and the operator itself
+OPERATOR_MODULES = {
+    "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.stats",
+    "repro_torch.obs.decisions", "repro_torch.core.job",
+    "repro_torch.core.placement", "repro_torch.core.cluster",
+    "repro_torch.core.policies", "repro_torch.core.metrics",
+    "repro_torch.checkpoint.async_ckpt", "repro_torch.core.operator",
+}
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
@@ -42,4 +53,6 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 25, proc.stdout
+    assert n >= 44, proc.stdout
+    names = set(proc.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
+    assert OPERATOR_MODULES <= names, sorted(OPERATOR_MODULES - names)
