@@ -39,7 +39,20 @@ without a CUDA device the script exits non-zero before printing a result:
    failure and restart from disk, a drain migration on the host lane).  The
    ``[operator]`` lines give each rescale's stages and path, each
    scenario's ``ScheduleMetrics.row()``, peak memory, live trainers and
-   seconds, and the launches against those the steps imply.
+   seconds, and the launches against those the steps imply.  Each scenario
+   runs under the port's ``Tracer``, writing a JSONL trace;
+8. the policy simulator (paper C3) on the host, ``[simulator]`` lines: the
+   port's auditor over both phase-7 traces (zero violations), with their
+   phase reconciliation, causal chains and text Gantt; Table 1's simulation
+   columns at the paper's size (64 slots, 16 Jacobi jobs, seed 7, gap 90 s,
+   T_rescale_gap 180 s) for the four variants and ``elastic_preempt``,
+   traced and audited, the four variants held to
+   ``tests/golden/schedule_metrics.json`` (integers exactly, floats to a
+   relative ``GOLDEN_RTOL``); the Fig. 7 and Fig. 8 sweeps at the
+   benchmarks' grids (every job completes); the event loop's retired
+   events/s on the bench_simcore rungs and the self-profiler's cost per
+   event kind; and the H100 ``ArchScalingModel``'s one-card fp32 step
+   prediction beside phase 4's measured steady R=4 step.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
@@ -49,6 +62,7 @@ which runs on both, has one record per path; the bf16 instantiations of
 flash attention and the SSD scan, on no path, have records of their own
 with ``"path": null`` and 0 launches.
 """
+import dataclasses
 import gc
 import json
 import math
@@ -70,25 +84,40 @@ from repro_torch.checkpoint import DiskCheckpointStore, flatten_tree  # noqa: E4
 from repro_torch.configs import ATTN, get_config  # noqa: E402
 from repro_torch.core import (ElasticClusterController, ElasticTrainer,  # noqa: E402
                               JobSpec, JobStatus, PolicyConfig, TrainJobConfig,
-                              local_slots)
+                              VARIANTS, local_slots, make_jacobi_jobs,
+                              run_variant)
+from repro_torch.core.perf_model import (H100_HBM_BW,  # noqa: E402
+                                         H100_PEAK_FLOPS_BF16,
+                                         H100_PEAK_FLOPS_FP32,
+                                         arch_model_from_config)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.obs import (SimProfiler, Tracer, build_span_graph,  # noqa: E402
+                             install, install_profiler)
+from repro_torch.obs.audit import audit_records  # noqa: E402
+from repro_torch.obs.critical_path import reconcile  # noqa: E402
+from repro_torch.obs.spans import render_chains  # noqa: E402
+from repro_torch.obs.timeline import render_last_run  # noqa: E402
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor cores,
-# bf16 tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-PEAK_BYTES = 3.35e12
+# bf16 tensor cores, HBM3 bandwidth; the perf model's constants
+PEAK_FLOPS = {torch.float32: H100_PEAK_FLOPS_FP32, torch.bfloat16: H100_PEAK_FLOPS_BF16}
+PEAK_BYTES = H100_HBM_BW
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMSNORM_TOL = 1e-5
 # atol = rtol, the reference's own SSD tolerances (tests/test_kernels.py:79)
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 MAMBA2_PARAMS = 1_344_052_224
+# phase 4's job and the replicas of its six steps (R=4, host-lane shrink to
+# 2, p2p expand to 4)
+MAIN_JOB = dict(global_batch=8, seq_len=2048, total_steps=6, seed=0)
+MAIN_REPLICAS = (4, 4, 2, 2, 4, 4)
 # static vs rescaled at full width on the card: the shards of R=4 and R=2 are
 # products of different shapes, for which cuBLAS may pick kernels that sum in
 # another order; AdamW's m/sqrt(v) turns a rounding difference in a gradient
@@ -105,6 +134,21 @@ OPERATOR_MAMBA2_LAYERS = 8
 # amplifies the rounding differences between replica counts past
 # TRAJ_LOSS_TOL
 OPERATOR_JOB = dict(global_batch=8, seq_len=2048, peak_lr=3e-4)
+# phase 8: the JAX package's committed Table 1 simulation metrics.  The
+# reference itself differs from them in the last bit of a float on some
+# machines, so floats are held to a relative 1e-9, integers exactly
+GOLDEN = os.path.join(ROOT, "tests", "golden", "schedule_metrics.json")
+GOLDEN_RTOL = 1e-9
+# the paper's Table 1 cell and the benchmarks' grids
+# (benchmarks/fig7_submission_gap.py, fig8_rescale_gap.py, bench_simcore.py)
+TABLE1 = dict(seed=7, n_jobs=16, submission_gap=90.0, total_slots=64, rescale_gap=180.0)
+TABLE1_VARIANTS = VARIANTS + ("elastic_preempt",)
+FIG_SEEDS = tuple(range(12))
+FIG7_GAPS = (0, 30, 60, 90, 120, 180, 240, 300)
+FIG8_TGAPS = (0, 60, 180, 300, 600, 900, 1200)
+FIG8_VARIANTS = ("elastic", "moldable", "rigid_min")
+SIMCORE_JOBS = (16, 32, 64, 128)
+SIMCORE_REPEATS = 7
 
 
 def check(cond, msg):
@@ -428,7 +472,7 @@ def run_elastic(cfg, job, steps=(2, 2, 2), log=True):
 
 
 def main_path(cfg):
-    job = TrainJobConfig(global_batch=8, seq_len=2048, total_steps=6, seed=0)
+    job = TrainJobConfig(**MAIN_JOB)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -441,9 +485,8 @@ def main_path(cfg):
           f"paths {[r.path for r in timings]}")
     for r in timings:
         say("main", rescale=r.path, **{k: f"{v:.4f}" for k, v in r.as_dict().items()})
-    per_step = [4, 4, 2, 2, 4, 4]
     kernel = "flash_attention" if cfg.mixer_at(0) == ATTN else "ssd"
-    expected = 2 * cfg.num_layers * sum(per_step)       # fwd + recompute
+    expected = 2 * cfg.num_layers * sum(MAIN_REPLICAS)  # fwd + recompute
     say("main", arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
         startup_s=f"{t.startup_time:.2f}", step_s=[round(s, 4) for s in step_s],
         tokens_per_s=f"{job.global_batch * job.seq_len / min(step_s):.0f}",
@@ -455,7 +498,7 @@ def main_path(cfg):
     profile_step(t)
     del t
     torch.cuda.empty_cache()
-    return counts
+    return counts, step_s
 
 
 KERNEL_GROUPS = (("ssd", ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")),
@@ -741,10 +784,13 @@ def expected_launches(records, snapshot_packs):
     return out
 
 
-def operator_phase(yi_cfg, victim_cfg):
+def operator_phase(yi_cfg, victim_cfg, trace_dir):
     """Phase 7: the live operator at full width on the card, scenarios A and
-    B, with the launch counts zeroed before and read after the phase."""
+    B, with the launch counts zeroed before and read after the phase.  Each
+    scenario runs under a ``Tracer`` writing ``<trace_dir>/operator_<A|B>.jsonl``.
+    Returns the launch counts and ``{scenario: trace path}``."""
     t_phase = time.perf_counter()
+    traces = {s: os.path.join(trace_dir, f"operator_{s}.jsonl") for s in "AB"}
     device = "cuda"
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
@@ -763,7 +809,9 @@ def operator_phase(yi_cfg, victim_cfg):
     t0 = time.perf_counter()
     low_job = TrainJobConfig(total_steps=10, seed=0, **OPERATOR_JOB)
     high_job = TrainJobConfig(total_steps=4, seed=1, **OPERATOR_JOB)
-    op, m = scenario_priority(yi_cfg, low_job, high_job, device)
+    with install(Tracer(traces["A"])) as tracer:
+        op, m = scenario_priority(yi_cfg, low_job, high_job, device)
+    tracer.close()
     scenario_end("A", op, m, t0)
     records += [trainer_record(live.trainer) for live in op.live.values()]
     low_losses = [x["loss"] for x in op.live["low"].trainer.metrics_log]
@@ -790,9 +838,11 @@ def operator_phase(yi_cfg, victim_cfg):
     victim_job = TrainJobConfig(total_steps=4, seed=2, **OPERATOR_JOB)
     neighbor_job = TrainJobConfig(total_steps=4, seed=3, **OPERATOR_JOB)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d, \
+            install(Tracer(traces["B"])) as tracer:
         op, m, dropped, timings = scenario_faults(victim_cfg, victim_job, yi_cfg,
                                                   neighbor_job, device, d)
+    tracer.close()
     say("operator", scenario="B", **{k: f"{v:.4f}" if isinstance(v, float) else v
                                      for k, v in timings.items()})
     scenario_end("B", op, m, t0)
@@ -812,7 +862,192 @@ def operator_phase(yi_cfg, victim_cfg):
         check(expected[kernel] > 0, f"the operator path implies no {kernel} launch")
         check(counts[kernel] == expected[kernel],
               f"operator path: {kernel} launches {counts[kernel]} != {expected[kernel]}")
-    return counts
+    return counts, traces
+
+
+# -- phase 8 -------------------------------------------------------------------------
+
+def say_block(what, text):
+    """A multi-line text as ``[simulator]`` lines."""
+    for line in text.splitlines():
+        print(f"[simulator] {what} | {line}", flush=True)
+
+
+def audit_trace(name, records):
+    """The port's auditor over every run in ``records``: one line per run,
+    and a failure on any violation.  Returns the reports."""
+    reports = audit_records(records, source=name)
+    check(reports, f"{name}: the trace holds no run")
+    for rep in reports:
+        say("simulator", trace=name, run=rep.run, records=rep.counts.get("records", 0),
+            violations=len(rep.violations), checks=",".join(
+                f"{k}={'ok' if v else 'VIOLATED'}" for k, v in sorted(rep.checks.items())))
+    check(all(rep.ok for rep in reports),
+          "\n".join(rep.summary() for rep in reports if not rep.ok))
+    return reports
+
+
+def audit_operator_trace(name, path):
+    """Phase 7's trace of scenario ``name``: audited, then its phase
+    reconciliation, causal chains and text Gantt."""
+    records = Tracer.load(path)
+    check(len(audit_trace(f"operator_{name}", records)) == 1,
+          f"scenario {name}: one operator run per trace")
+    violations = reconcile(records)
+    say("simulator", trace=f"operator_{name}", reconcile_violations=len(violations))
+    check(not violations, f"scenario {name}: {violations}")
+    say_block(f"operator_{name} chains", render_chains(build_span_graph(records)))
+    say_block(f"operator_{name} timeline", render_last_run(records))
+
+
+def golden_diff(got, want, rtol=GOLDEN_RTOL, key=""):
+    """(mismatches, largest relative float error) of ``got`` against
+    ``want``: floats may differ by a relative ``rtol``, everything else
+    (keys, integers, counters, strings) must be equal."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        bad = [f"{key}: keys {sorted(set(got) ^ set(want))}"] if set(got) != set(want) else []
+        err = 0.0
+        for k in sorted(set(got) & set(want)):
+            b, e = golden_diff(got[k], want[k], rtol, f"{key}.{k}")
+            bad, err = bad + b, max(err, e)
+        return bad, err
+    if isinstance(got, float) and isinstance(want, float):
+        scale = max(abs(got), abs(want))
+        err = abs(got - want) / scale if scale else 0.0
+        return ([] if err <= rtol else [f"{key}: {got!r} != {want!r}"]), err
+    return ([] if type(got) is type(want) and got == want
+            else [f"{key}: {got!r} != {want!r}"]), 0.0
+
+
+def table1_phase(trace_path):
+    """Table 1's simulation columns at the paper's size, traced: one row per
+    variant, the four paper variants held to the golden metrics, the trace
+    audited."""
+    with open(GOLDEN) as fh:
+        golden = json.load(fh)
+    specs = make_jacobi_jobs(seed=TABLE1["seed"], n_jobs=TABLE1["n_jobs"],
+                             submission_gap=TABLE1["submission_gap"])
+    t0 = time.perf_counter()
+    with install(Tracer(trace_path)) as tracer:
+        rows = {v: run_variant(v, specs, total_slots=TABLE1["total_slots"],
+                               rescale_gap=TABLE1["rescale_gap"]) for v in TABLE1_VARIANTS}
+    tracer.close()
+    seconds = time.perf_counter() - t0
+    for v, m in rows.items():
+        print(f"[simulator] table1.sim.{v:<15s} {m.row()}", flush=True)
+        check(m.dropped_jobs == 0, f"table1 {v}: {m.dropped_jobs} jobs dropped")
+    for v in VARIANTS:
+        got = json.loads(json.dumps(rows[v].to_dict(), sort_keys=True))
+        bad, err = golden_diff(got, golden[f"table1.sim.{v}"])
+        say("simulator", golden=f"table1.sim.{v}", mismatches=len(bad),
+            max_rel_err=err, rtol=GOLDEN_RTOL)
+        check(not bad, f"table1 {v} against the golden metrics: {bad[:5]}")
+    reports = audit_trace("table1", Tracer.load(trace_path))
+    check(len(reports) == len(TABLE1_VARIANTS), f"table1 trace: {len(reports)} runs")
+    say("simulator", table1_seconds=f"{seconds:.3f}")
+
+
+def figure_sweeps(seeds=FIG_SEEDS, gaps=FIG7_GAPS, tgaps=FIG8_TGAPS):
+    """Fig. 7 (submission gap, T_rescale_gap 180 s) and Fig. 8
+    (T_rescale_gap, submission gap 180 s) at the benchmarks' grids: each
+    cell's mean over ``seeds`` as the benchmarks print it; every job of
+    every run completes.  Returns the number of runs."""
+    t0 = time.perf_counter()
+    cells = ([("fig7", f"gap{g}", v, float(g), 180.0) for g in gaps for v in VARIANTS]
+             + [("fig8", f"tgap{tg}", v, 180.0, float(tg))
+                for tg in tgaps for v in FIG8_VARIANTS])
+    for fig, cell, v, gap, tgap in cells:
+        rows = []
+        for seed in seeds:
+            specs = make_jacobi_jobs(seed=seed, n_jobs=16, submission_gap=gap)
+            m = run_variant(v, specs, total_slots=64, rescale_gap=tgap)
+            check(m.dropped_jobs == 0 and m.counters.get("completions") == 16,
+                  f"{fig}.{cell}.{v} seed {seed}: {m.counters}")
+            rows.append((m.total_time, m.utilization, m.weighted_mean_response,
+                         m.weighted_mean_completion, m.rescale_count))
+        a = [sum(col) / len(rows) for col in zip(*rows)]
+        say("simulator", cell=f"{fig}.{cell}.{v}", total=f"{a[0]:.0f}",
+            util=f"{a[1]:.3f}", resp=f"{a[2]:.1f}", compl=f"{a[3]:.1f}",
+            rescales=f"{a[4]:.1f}")
+    runs = len(cells) * len(seeds)
+    say("simulator", figures="fig7+fig8", runs=runs,
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    return runs
+
+
+def event_rate(card, job_counts=SIMCORE_JOBS, repeats=SIMCORE_REPEATS):
+    """The event loop on this machine's host: retired events (dispatched +
+    stale-dropped) per second on bench_simcore's rungs, best of ``repeats``;
+    then the self-profiler's cost per event kind and section on the largest
+    rung, over ``repeats`` runs."""
+    def rung(n):
+        specs = make_jacobi_jobs(seed=11, n_jobs=n, submission_gap=45.0)
+        return lambda: run_variant("elastic", specs, total_slots=64, rescale_gap=180.0)
+    for n in job_counts:
+        run = rung(n)
+        m = run()
+        walls = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            run()
+            walls.append(time.perf_counter() - t0)
+        retired = m.counters["events"] + m.counters.get("stale_events", 0)
+        say("simulator", rung_jobs=n, events=m.counters["events"],
+            stale_events=m.counters.get("stale_events", 0), wall_s=f"{min(walls):.6f}",
+            events_retired_per_s=f"{retired / min(walls):.0f}", card=json.dumps(card))
+    prof = SimProfiler()
+    run = rung(job_counts[-1])
+    for _ in range(repeats):
+        one = SimProfiler()
+        t0 = time.perf_counter()
+        with install_profiler(one):
+            run()
+        one.wall_s = time.perf_counter() - t0
+        prof.merge(one)
+    rep = prof.report()
+    for table in ("events", "sections"):
+        for name, cell in rep[table].items():
+            say("simulator", profile_jobs=job_counts[-1], repeats=repeats, **{table[:-1]: name},
+                count=cell["count"], total_s=cell["total_s"], mean_us=cell["mean_us"])
+    say("simulator", profile_jobs=job_counts[-1], wall_s=rep["wall_s"],
+        handler_s=rep["handler_s"], unattributed_s=rep["unattributed_s"], card=json.dumps(card))
+    return rep
+
+
+def arch_prediction(cfg):
+    """The H100 ``ArchScalingModel``'s one-card float32 model of phase 4's
+    step: 6*N*tokens at global batch 8 x 2048 over the fp32 peak, mfu 0.4."""
+    m = arch_model_from_config(cfg, seq_len=MAIN_JOB["seq_len"],
+                               global_batch=MAIN_JOB["global_batch"])
+    return dataclasses.replace(m, peak_flops=H100_PEAK_FLOPS_FP32, gpus_per_group=1)
+
+
+def arch_vs_card(cfg, step_s, card):
+    """The arch model's prediction beside phase 4's steady R=4 step (the
+    median of its R=4 steps after the first) and their ratio.  No gate."""
+    m = arch_prediction(cfg)
+    predicted = m.time_per_step(1)
+    r4 = sorted(s for s, r in list(zip(step_s, MAIN_REPLICAS))[1:] if r == 4)
+    measured = r4[len(r4) // 2]
+    say("simulator", arch=cfg.name, layers=cfg.num_layers, flops=f"{m.flops_per_step:.4e}",
+        peak_flops=m.peak_flops, mfu=m.mfu, predicted_s=f"{predicted:.4f}",
+        measured_r4_s=f"{measured:.4f}", measured_over_predicted=f"{measured / predicted:.4f}",
+        fp32_peak_share=f"{m.flops_per_step / measured / m.peak_flops:.4f}",
+        card=json.dumps(card))
+
+
+def simulator_phase(op_traces, arch_steps, card, trace_dir):
+    """Phase 8: the policy simulator and the flight recorder on the host,
+    with the operator's traces from the card."""
+    t_phase = time.perf_counter()
+    for name, path in op_traces.items():
+        audit_operator_trace(name, path)
+    table1_phase(os.path.join(trace_dir, "table1.jsonl"))
+    figure_sweeps()
+    event_rate(card)
+    for cfg, step_s in arch_steps:
+        arch_vs_card(cfg, step_s, card)
+    say("simulator", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
 def main():
@@ -834,16 +1069,22 @@ def main():
           f"mamba2-1.3b has {M.param_count(paths[1])} parameters")
     records = [*check_flash(gen), check_rmsnorm(gen), *check_ssd(gen)]
     records += [check_pack(cfg, gen) for cfg in paths]
-    counts = {cfg.name: main_path(cfg) for cfg in paths}
+    runs = {cfg.name: main_path(cfg) for cfg in paths}
+    counts = {name: c for name, (c, _) in runs.items()}
     for rec in records:     # each record's launches on the path its shapes are from
         rec["launches"] = counts[rec["path"]][rec["name"]] if rec["path"] else 0
     for cfg in paths:
         trajectory(cfg.name)
     for cfg in paths:
         train_cli_smoke(cfg.name)
-    op_counts = operator_phase(paths[0], paths[1].with_(num_layers=OPERATOR_MAMBA2_LAYERS))
-    for rec in records:
-        rec["operator_launches"] = op_counts[rec["name"]] if rec["path"] else 0
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as trace_dir:
+        op_counts, op_traces = operator_phase(
+            paths[0], paths[1].with_(num_layers=OPERATOR_MAMBA2_LAYERS), trace_dir)
+        for rec in records:
+            rec["operator_launches"] = op_counts[rec["name"]] if rec["path"] else 0
+        simulator_phase(op_traces, [(cfg, runs[cfg.name][1]) for cfg in paths], card,
+                        trace_dir)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": records}))

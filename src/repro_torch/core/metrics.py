@@ -1,7 +1,6 @@
 """Scheduler evaluation metrics (paper §4.3).
 
-Copy of ``repro.core.metrics`` (framework-free), without the critical-path
-rollup (``phases``), which the operator never passes.
+Copy of ``repro.core.metrics`` (framework-free).
 
 - total time: first submission -> last completion
 - cluster utilization: time-averaged used/total slots over that window; with
@@ -221,8 +220,7 @@ class ScheduleMetrics:
     percentiles: Dict[str, float] = field(default_factory=dict)
     # monotonic run counters (events processed, rescales, migrations, ...)
     counters: Dict[str, int] = field(default_factory=dict)
-    # makespan decomposition (the JAX package's repro.obs.critical_path;
-    # empty here, where no caller passes phases): priority-weighted
+    # makespan decomposition (repro_torch.obs.critical_path): priority-weighted
     # mean seconds per phase over completed jobs — the phases PARTITION each
     # makespan, so the values sum to weighted_mean_completion
     phase_seconds: Dict[str, float] = field(default_factory=dict)
@@ -259,11 +257,14 @@ class ScheduleMetrics:
 
 
 def compute_metrics(jobs: Sequence[JobState], util: UtilizationLog, *,
-                    latency=None, counters: Optional[Dict[str, int]] = None
-                    ) -> ScheduleMetrics:
-    """Cost and phase fields stay at their zero defaults here.  ``latency``
-    is a :class:`repro_torch.obs.stats.LatencyRecorder` (or anything with
-    ``percentile_fields()``); ``counters`` a plain dict."""
+                    latency=None, counters: Optional[Dict[str, int]] = None,
+                    phases=None) -> ScheduleMetrics:
+    """Cost fields stay at their zero defaults here (the JAX package's cloud
+    simulator fills them).  ``latency`` is a
+    :class:`repro_torch.obs.stats.LatencyRecorder` (or anything with
+    ``percentile_fields()``); ``counters`` a plain dict; ``phases`` a
+    :class:`repro_torch.obs.critical_path.PhaseLedger` whose per-job makespan
+    decompositions are rolled up into the ``phase_*`` fields."""
     done = [j for j in jobs if j.end_time is not None]
     submits = [j.spec.submit_time for j in jobs]
     t0 = min(submits) if submits else 0.0
@@ -271,6 +272,15 @@ def compute_metrics(jobs: Sequence[JobState], util: UtilizationLog, *,
     wsum = sum(j.spec.priority for j in done) or 1.0
     resp = sum(j.spec.priority * (response_time(j) or 0.0) for j in done) / wsum
     comp = sum(j.spec.priority * (completion_time(j) or 0.0) for j in done) / wsum
+    phase_kw = {}
+    if phases is not None:
+        from repro_torch.obs.critical_path import rollup
+        fleet = rollup(phases.per_job(),
+                       {j.spec.job_id: j.spec.priority for j in jobs})
+        if fleet.jobs:
+            phase_kw = dict(phase_seconds=fleet.phase_seconds,
+                            phase_by_priority=fleet.phase_by_priority,
+                            dominant_phase=fleet.dominant_phase)
     return ScheduleMetrics(
         total_time=t1 - t0,
         utilization=util.average(t0, t1),
@@ -282,4 +292,5 @@ def compute_metrics(jobs: Sequence[JobState], util: UtilizationLog, *,
         percentiles=(latency.percentile_fields()
                      if latency is not None else {}),
         counters=dict(counters) if counters else {},
+        **phase_kw,
     )

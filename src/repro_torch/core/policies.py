@@ -4,8 +4,8 @@ The policy is pure decision logic over a :class:`Cluster` view; effects go
 through the :class:`Actions` interface, implemented by both the discrete-event
 simulator (virtual clock) and the live operator (real training jobs).  This
 is what lets one implementation serve contributions C2 and C3.  Copy of
-``repro.core.policies`` (framework-free); the port has the live operator and
-not yet the simulator.
+``repro.core.policies`` (framework-free); the port's simulator
+(``repro_torch.core.simulator``) and live operator both drive it.
 
 The published listing is garbled by PDF extraction; the JAX package's
 tests/test_scheduler_policies.py pins each behavior of this reconstruction to

@@ -1,8 +1,8 @@
 """Structured JSONL flight recorder.
 
 Copy of ``repro.obs.trace`` (framework-free), with its own process-wide
-tracer: the port's live operator emits the same records as the JAX
-package's, so one auditor reads both.
+tracer: the port's simulator and live operator emit the same records as the
+JAX package's, so either package's auditor reads both.
 
 One :class:`Tracer` receives every span/event record a simulator (or the live
 controller) emits: job lifecycle (submit -> queue -> start -> rescale ->
@@ -12,9 +12,9 @@ cost events, and the decision-audit records of :mod:`repro_torch.obs.decisions`.
 
 Records are flat JSON objects with two universal keys — ``kind`` (the record
 type) and ``t`` (virtual time) — plus kind-specific fields.  The schema is
-documented in README.md ("Observability") and consumed by the JAX
-package's ``repro.obs.audit`` (invariant replay) and ``repro.obs.timeline``
-(text Gantt), which read the port's records unchanged.
+documented in README.md ("Observability") and consumed by
+:mod:`repro_torch.obs.audit` (invariant replay) and
+:mod:`repro_torch.obs.timeline` (text Gantt).
 
 Disabled runs pay ~nothing: the default is the module-level
 :data:`NULL_TRACER`, whose ``enabled`` is False so instrumented code guards
@@ -23,8 +23,8 @@ every emission with one attribute check (``if tracer.enabled: ...``).
 Callers install a tracer process-wide with::
 
     with install(Tracer(path)):
-        op = ElasticClusterController(...)   # picks it up via current_tracer()
-        op.run()
+        run_variant(...)        # Simulator picks it up via current_tracer()
+        ElasticClusterController(...).run()   # and so does the operator
 
 so deep call stacks need no per-layer tracer threading.
 """

@@ -46,6 +46,17 @@ OPERATOR_MODULES = {
     "repro_torch.checkpoint.async_ckpt", "repro_torch.core.operator",
 }
 
+# the policy simulator's slice (paper C3): the simulator, its event queue and
+# perf models, the autoscale policies and the rest of the flight recorder
+SIMULATOR_MODULES = {
+    "repro_torch.core", "repro_torch.core.events", "repro_torch.obs.profile",
+    "repro_torch.obs.critical_path", "repro_torch.core.metrics",
+    "repro_torch.core.perf_model", "repro_torch.core.simulator",
+    "repro_torch.core.autoscale", "repro_torch.obs.audit",
+    "repro_torch.obs.spans", "repro_torch.obs.timeline",
+    "repro_torch.obs.watchdog", "repro_torch.obs",
+}
+
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -53,6 +64,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 44, proc.stdout
+    assert n >= 54, proc.stdout
     names = set(proc.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
     assert OPERATOR_MODULES <= names, sorted(OPERATOR_MODULES - names)
+    assert SIMULATOR_MODULES <= names, sorted(SIMULATOR_MODULES - names)
