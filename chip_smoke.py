@@ -52,15 +52,41 @@ without a CUDA device the script exits non-zero before printing a result:
    benchmarks' grids (every job completes); the event loop's retired
    events/s on the bench_simcore rungs and the self-profiler's cost per
    event kind; and the H100 ``ArchScalingModel``'s one-card fp32 step
-   prediction beside phase 4's measured steady R=4 step.
+   prediction beside phase 4's measured steady R=4 step;
+9. bfloat16 on the host lane, ``[bf16]`` lines: phase 4's yi-6b job with
+   ``dtype="bfloat16"`` (the bf16 flash instantiation on every layer), two
+   steps at R=4 (the first loss, before any update, held to phase 4's
+   float32 first loss within one bf16 rounding step), a fused host snapshot
+   held byte for byte against the device state, a host-lane shrink to R=2
+   through the pack kernel's 2-byte instantiation whose restored state is
+   held against the snapshot, a step, a fused ``save_disk``, a step, a
+   fused delta ``save_disk`` (fewer bytes), and a restart from disk held
+   against the saved step; step times at R=4 and R=2, the rescale stages,
+   peak memory and the launches by dtype, zeroed before the phase and
+   checked after it;
+10. the cloud layer and the trace workloads on the host, ``[cloud]`` lines:
+    Table 2's 18 cells (policy x provisioning x market) through
+    ``CloudSimulator``, the two golden cells held to the fixture as in
+    phase 8, and the verdict row (autoscaled elastic cheaper than
+    static-max at a WMCT ratio under 1.5), which must say PASS; both
+    fixture traces characterized and replayed through every entry of
+    ``REPLAY_VARIANTS`` and through ``replay_cloud`` with a
+    ``NodeAutoscaler``, traced, audited with zero violations, every job
+    completed; and bench_simcore's fleet smoke row (20,000 jobs on 10,000
+    slots over 3 days, bounded-memory mode) held to ``BENCH_simcore.json``
+    (counters exactly, utilization to ``GOLDEN_RTOL``), with its wall time
+    and jobs/s.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
-whose shapes it was measured at and holds its launches on that path, and
-its launches on the operator path (``operator_launches``); the pack kernel,
-which runs on both, has one record per path; the bf16 instantiations of
-flash attention and the SSD scan, on no path, have records of their own
-with ``"path": null`` and 0 launches.
+whose shapes it was measured at and the launch count it reads (``kernel``,
+by ``dtype``), and holds its launches on that path, and its launches on the
+operator path (``operator_launches``); the pack kernel,
+which runs on every path, has one record per path (``pack_bf16`` is its
+2-byte instantiation on phase 9's path, ``yi-6b-bf16``, as
+``flash_attention_bf16`` is flash attention's); the bf16 SSD
+instantiation, on no path, has a record of its own with ``"path": null``
+and 0 launches.
 """
 import dataclasses
 import gc
@@ -73,6 +99,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -80,11 +107,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # keep Triton's compile cache inside the checkout's ignored build directory
 os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton"))
 
-from repro_torch.checkpoint import DiskCheckpointStore, flatten_tree  # noqa: E402
+from repro_torch.checkpoint import (DiskCheckpointStore, flatten_tree,  # noqa: E402
+                                    restore_from_host, snapshot_to_host)
+from repro_torch.checkpoint.reshard import host_tensor  # noqa: E402
+from repro_torch.cloud import (SPOT, AutoscalerConfig, CloudProvider,  # noqa: E402
+                               CloudSimulator, NodeAutoscaler, NodePool)
 from repro_torch.configs import ATTN, get_config  # noqa: E402
 from repro_torch.core import (ElasticClusterController, ElasticTrainer,  # noqa: E402
-                              JobSpec, JobStatus, PolicyConfig, TrainJobConfig,
-                              VARIANTS, local_slots, make_jacobi_jobs,
+                              JobSpec, JobStatus, PolicyConfig,
+                              PreemptingPolicy, TrainJobConfig, VARIANTS,
+                              jacobi_workload, local_slots, make_jacobi_jobs,
                               run_variant)
 from repro_torch.core.perf_model import (H100_HBM_BW,  # noqa: E402
                                          H100_PEAK_FLOPS_BF16,
@@ -103,6 +135,10 @@ from repro_torch.obs.critical_path import reconcile  # noqa: E402
 from repro_torch.obs.spans import render_chains  # noqa: E402
 from repro_torch.obs.timeline import render_last_run  # noqa: E402
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
+from repro_torch.workloads import (LOADERS, REPLAY_VARIANTS,  # noqa: E402
+                                   ReplayConfig, characterize, fixture_path,
+                                   google_fleet_trace, replay_cloud,
+                                   replay_variant)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor cores,
 # bf16 tensor cores, HBM3 bandwidth; the perf model's constants
@@ -149,6 +185,39 @@ FIG8_TGAPS = (0, 60, 180, 300, 600, 900, 1200)
 FIG8_VARIANTS = ("elastic", "moldable", "rigid_min")
 SIMCORE_JOBS = (16, 32, 64, 128)
 SIMCORE_REPEATS = 7
+# phase 9: phase 4's yi-6b job in bfloat16 (parameters, activations and the
+# bf16 flash instantiation; AdamW's moments stay float32), named as a path.
+# It trains at the operator's peak rate, phase 7's for the same full-width
+# job in float32.  Its first loss, taken before any update, is phase 4's
+# float32 first loss on the same batch from the same initial values rounded
+# to bf16: held to it within one bf16 rounding step of the loss (8
+# significant bits)
+BF16_PATH = "yi-6b-bf16"
+BF16_JOB = dict(MAIN_JOB, dtype="bfloat16", peak_lr=OPERATOR_JOB["peak_lr"])
+BF16_LOSS_RTOL = 2.0 ** -8
+# phase 10: Table 2 (benchmarks/table2_cloud_cost.py), restated here because
+# the card's machine has no JAX: the 16-job small/medium Jacobi stream on
+# 8-slot nodes, at most 8 nodes (the paper's 64 slots), on-demand $0.048 and
+# spot $0.016 a slot-hour
+T2_PRICE_OD = 0.048
+T2_PRICE_SPOT = 0.016
+T2_SLOTS_PER_NODE = 8
+T2_MAX_NODES = 8
+T2_POLICIES = ("moldable", "elastic", "elastic_preempt")
+T2_PROVISIONING = ("static_max", "static_min", "autoscaled")
+T2_MARKETS = ("on_demand", "spot30")
+T2_GOLDEN = (("elastic", "static_max", "on_demand"), ("elastic", "autoscaled", "spot30"))
+# the fixture traces through the simulator and the cloud simulator
+# (benchmarks/table4_traces.py's cluster: 8 nodes of 8 slots at $0.048)
+TRACE_FIXTURES = (("google", "google_sample.csv"), ("azure", "azure_sample.csv"))
+T4_CLUSTER_SLOTS = 64
+# bench_simcore.py's fleet smoke row: a Google-shape trace of 20,000 jobs
+# over 3 days on 1,250 nodes of 8 slots (10,000 slots), elastic, T_rescale_gap
+# 1800 s, bounded-memory mode; its committed counters are BENCH_simcore.json's
+FLEET_SMOKE = dict(n_jobs=20_000, seed=3, days=3.0, nodes=1_250, slots_per_node=8)
+FLEET_RESCALE_GAP = 1800.0
+BENCH_SIMCORE = os.path.join(ROOT, "BENCH_simcore.json")
+FLEET_EXACT = ("events", "stale_events", "completions", "rescales", "dropped_jobs")
 
 
 def check(cond, msg):
@@ -184,14 +253,23 @@ def dtype_name(dtype):
     return None if dtype is None else str(dtype).split(".")[1]
 
 
-def record(name, path, dtype, source, replaces, err, ms, plain, lib, b_ms, b_by,
-           flops, route="cuda"):
+def record(name, kernel, path, dtype, source, replaces, err, ms, plain, lib, b_ms,
+           b_by, flops, route="cuda"):
     """One entry of the kernels line: the kernel's times beside its bound,
-    the share of the bound it reaches and its rate."""
-    return {"name": name, "path": path, "dtype": dtype_name(dtype), "route": route,
+    the share of the bound it reaches and its rate.  ``kernel`` and ``dtype``
+    name the launch count it reads (``dtype`` None: all of the kernel's)."""
+    return {"name": name, "kernel": kernel, "path": path, "dtype": dtype_name(dtype),
+            "route": route,
             "source": source, "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib, "of_bound": b_ms / ms, "tflops": flops / ms / 1e9}
+
+
+def launches_of(rec, counts):
+    """A kernels-line record's launches in ``counts`` ({kernel: {dtype:
+    launches}}): those of its dtype, or all of its kernel's where it has none."""
+    by_dtype = counts.get(rec["kernel"], {})
+    return sum(by_dtype.values()) if rec["dtype"] is None else by_dtype.get(rec["dtype"], 0)
 
 
 def bound(nbytes, flops, dtype):
@@ -258,10 +336,10 @@ def check_flash(gen):
             qt, kt, vt, is_causal=True, enable_gqa=True), 10)
         flops = 4 * hd * B * H * S * (S + 1) // 2      # causal pairs only
         b_ms, b_by = bound(nbytes(q, k, v, out, lse), flops, dtype)
-        f32 = dtype == torch.float32                     # the main path's type
+        f32 = dtype == torch.float32       # phase 4's type; bf16 is phase 9's
         recs.append(record(
-            "flash_attention" if f32 else "flash_attention_bf16",
-            "yi-6b" if f32 else None, dtype,
+            "flash_attention" if f32 else "flash_attention_bf16", "flash_attention",
+            "yi-6b" if f32 else BF16_PATH, dtype,
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:26", err, ms, plain, lib,
             b_ms, b_by, flops))
@@ -287,19 +365,22 @@ def check_rmsnorm(gen):
     b_ms, b_by = bound(nbytes(x, w, y), 4 * x.numel(), torch.float32)
     say("kernels", kernel="rmsnorm", shape=f"{N}x{D}", max_abs_err=err, ms=ms,
         plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-    return record("rmsnorm", "yi-6b", torch.float32,
+    return record("rmsnorm", "rmsnorm", "yi-6b", torch.float32,
                   "src/repro_torch/kernels/rmsnorm.py",
                   "src/repro/kernels/rmsnorm.py:11", err, ms, plain, lib, b_ms,
                   b_by, 4 * x.numel(), route="triton")
 
 
-def pack_groups(cfg, gen):
+def pack_groups(cfg, gen, dtype=None):
     """The leaf lists that the host-lane shrink of ``cfg``'s trainer packs,
     one per pack launch, grouped as ``packed_snapshot_to_host`` groups them:
     the float32 parameters, the float32 AdamW moments and the int32 step
-    count.  Moments and count are filled, so the bytes compared are not all
-    zero."""
-    params = M.init_params(cfg.with_(dtype=TrainJobConfig.dtype), 0, device="cuda")
+    count, the moments and count filled so the bytes compared are not all
+    zero.  With ``dtype``, only the parameters' group, in that dtype."""
+    params = M.init_params(cfg.with_(dtype=dtype_name(dtype) or TrainJobConfig.dtype), 0,
+                           device="cuda")
+    if dtype is not None:
+        return [[t.detach() for t in flatten_tree(params).values()]]
     opt = adamw_init(params)
     for t in flatten_tree(opt).values():
         if t.is_floating_point():
@@ -315,13 +396,14 @@ def pack_groups(cfg, gen):
     return groups
 
 
-def check_pack(cfg, gen):
-    """The pack kernel on each leaf list of ``cfg``'s host-lane shrink: byte
-    equality with ``pack_leaves_ref``, and the times of the whole snapshot's
-    launches (sums of each launch's median)."""
+def check_pack(cfg, gen, name, path, dtype=None):
+    """The pack kernel on each leaf list of ``cfg``'s host-lane shrink on
+    ``path`` (``pack_groups``; with ``dtype``, that group alone): byte
+    equality with ``pack_leaves_ref``, and the times of the launches (sums
+    of each launch's median), as the kernels-line record ``name``."""
     ms = plain = 0.0
     moved = 0
-    groups = pack_groups(cfg, gen)
+    groups = pack_groups(cfg, gen, dtype)
     for leaves in groups:
         out = pack_leaves(leaves)
         exp = ref.pack_leaves_ref(leaves)
@@ -332,20 +414,18 @@ def check_pack(cfg, gen):
         del exp
         g_ms = time_ms(lambda: pack_leaves(leaves), 5, warmup=1)
         g_plain = time_ms(lambda: ref.pack_leaves_ref(leaves), 3, warmup=1)
-        say("kernels", kernel="pack", path=cfg.name,
-            dtype=str(leaves[0].dtype).split(".")[1], leaves=len(leaves),
-            gb=f"{nbytes(*leaves) / 1e9:.3f}", byte_identical=same, ms=g_ms,
-            plain_ms=g_plain)
+        say("kernels", kernel="pack", path=path, dtype=dtype_name(leaves[0].dtype),
+            leaves=len(leaves), gb=f"{nbytes(*leaves) / 1e9:.3f}", byte_identical=same,
+            ms=g_ms, plain_ms=g_plain)
         ms, plain, moved = ms + g_ms, plain + g_plain, moved + nbytes(*leaves, out)
         del out
     b_ms, b_by = bound(moved, 0, torch.float32)
-    say("kernels", kernel="pack", path=cfg.name, launches_per_snapshot=len(groups),
+    say("kernels", kernel="pack", path=path, launches_per_snapshot=len(groups),
         gb_moved=f"{moved / 1e9:.3f}", ms=ms, plain_ms=plain, library_ms=None,
         bound_ms=b_ms, bound_by=b_by)
     del groups
-    return record("pack", cfg.name, None, "src/repro_torch/csrc/pack.cu",
-                  "src/repro/kernels/pack.py:40", 0.0, ms, plain, None, b_ms,
-                  b_by, 0)
+    return record(name, "pack", path, dtype, "src/repro_torch/csrc/pack.cu",
+                  "src/repro/kernels/pack.py:40", 0.0, ms, plain, None, b_ms, b_by, 0)
 
 
 def kernel_times(prof):
@@ -415,7 +495,7 @@ def check_ssd(gen):
         b_ms, b_by = bound(nbytes(*args, y), flops, dtype)
         f32 = dtype == torch.float32                     # the main path's type
         recs.append(record(
-            "ssd" if f32 else "ssd_bf16", "mamba2-1.3b" if f32 else None, dtype,
+            "ssd" if f32 else "ssd_bf16", "ssd", "mamba2-1.3b" if f32 else None, dtype,
             "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:24",
             err, ms, plain, None, b_ms, b_by, flops))
         say("kernels", kernel="ssd", dtype=dtype_name(dtype),
@@ -479,6 +559,7 @@ def main_path(cfg):
     t, step_s, timings = run_elastic(cfg, job)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    by_dtype = ops.launch_counts_by_dtype()
     losses = [m["loss"] for m in t.metrics_log]
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check([r.path for r in timings] == ["host", "p2p"],
@@ -498,7 +579,7 @@ def main_path(cfg):
     profile_step(t)
     del t
     torch.cuda.empty_cache()
-    return counts, step_s
+    return by_dtype, step_s, losses
 
 
 KERNEL_GROUPS = (("ssd", ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")),
@@ -788,7 +869,7 @@ def operator_phase(yi_cfg, victim_cfg, trace_dir):
     """Phase 7: the live operator at full width on the card, scenarios A and
     B, with the launch counts zeroed before and read after the phase.  Each
     scenario runs under a ``Tracer`` writing ``<trace_dir>/operator_<A|B>.jsonl``.
-    Returns the launch counts and ``{scenario: trace path}``."""
+    Returns the launch counts by dtype and ``{scenario: trace path}``."""
     t_phase = time.perf_counter()
     traces = {s: os.path.join(trace_dir, f"operator_{s}.jsonl") for s in "AB"}
     device = "cuda"
@@ -854,6 +935,7 @@ def operator_phase(yi_cfg, victim_cfg, trace_dir):
 
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    by_dtype = ops.launch_counts_by_dtype()
     expected = expected_launches(records, timings["snapshot_packs"])
     say("operator", launches=json.dumps(counts).replace(" ", ""),
         expected=json.dumps(expected).replace(" ", ""),
@@ -862,7 +944,7 @@ def operator_phase(yi_cfg, victim_cfg, trace_dir):
         check(expected[kernel] > 0, f"the operator path implies no {kernel} launch")
         check(counts[kernel] == expected[kernel],
               f"operator path: {kernel} launches {counts[kernel]} != {expected[kernel]}")
-    return counts, traces
+    return by_dtype, traces
 
 
 # -- phase 8 -------------------------------------------------------------------------
@@ -1050,6 +1132,317 @@ def simulator_phase(op_traces, arch_steps, card, trace_dir):
     say("simulator", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
+# -- phase 9 -------------------------------------------------------------------------
+
+INT_OF_SIZE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def same_bits(a, b):
+    """Whether two tensors of one shape and dtype hold the same bytes
+    (compared as integers, so any NaN payload or signed zero counts)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = INT_OF_SIZE[a.element_size()]
+    return torch.equal(a.detach().view(ints), b.detach().view(ints))
+
+
+def state_matches(state, want):
+    """Whether the leaves of ``state`` (a tree of tensors on the card) hold
+    the bytes of the flat ``want``: tensors, or a host snapshot's arrays
+    (bfloat16 as ``V2``), each moved to the card for the comparison.
+    Returns (equal, bytes compared)."""
+    flat = flatten_tree(state)
+    check(sorted(flat) == sorted(want), f"keys {sorted(set(flat) ^ set(want))}")
+    n = 0
+    for k, t in flat.items():
+        w = want[k]
+        w = host_tensor(np.asarray(w)) if isinstance(w, np.ndarray) else w
+        if not same_bits(t, w.to(t.device)):
+            return False, n
+        n += t.numel() * t.element_size()
+    return True, n
+
+
+def bf16_phase(cfg, ckpt_root, fp32_loss, job=BF16_JOB, device="cuda"):
+    """Phase 9: phase 4's yi-6b job with ``dtype="bfloat16"`` on the card.
+    Two steps at R=4 (the first loss held to ``fp32_loss``, the float32
+    job's first, within ``BF16_LOSS_RTOL``), a fused host snapshot held
+    against the device state, a host-lane shrink to R=2 (the parameters'
+    group through the pack kernel's 2-byte instantiation) whose restored
+    state is held against the snapshot, a step, a fused ``save_disk``, a
+    step, a fused delta ``save_disk`` (fewer bytes), and a restart from disk
+    into a new trainer whose state is held against the saved step's; the
+    restarted trainer takes one step.  Launch counts are zeroed before and
+    read after, by dtype.  Returns those counts."""
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    slots = local_slots(4)
+    t = ElasticTrainer(cfg, TrainJobConfig(**job), slots, device=device)
+    check({v.dtype for v in flatten_tree(t.params).values()} == {torch.bfloat16},
+          "bf16: the parameters are not bfloat16")
+    step_s, replicas = [], []
+
+    def run(trainer, n):
+        for _ in range(n):
+            t0 = time.perf_counter()
+            m = trainer.step()
+            step_s.append(time.perf_counter() - t0)
+            replicas.append(m["replicas"])
+            say("bf16", step=m["step"], replicas=m["replicas"], loss=m["loss"],
+                grad_norm=m["grad_norm"], seconds=f"{step_s[-1]:.3f}")
+            check(math.isfinite(m["loss"]), f"bf16: loss {m['loss']}")
+
+    run(t, 2)
+    first = t.metrics_log[0]["loss"]
+    rel = abs(first - fp32_loss) / abs(fp32_loss)
+    say("bf16", first_loss=first, fp32_first_loss=fp32_loss, rel_err=rel,
+        rtol=BF16_LOSS_RTOL)
+    check(rel <= BF16_LOSS_RTOL, f"bf16: first loss {first} vs float32 {fp32_loss}")
+    t0 = time.perf_counter()
+    host = snapshot_to_host(t.state_tree(), fused=True)
+    snap_s = time.perf_counter() - t0
+    same, nb = state_matches(t.state_tree(), host)
+    say("bf16", snapshot="fused", seconds=f"{snap_s:.4f}", bytes=nb,
+        v2_leaves=sum(a.dtype == np.dtype("V2") for a in host.values()), byte_exact=same)
+    check(same, "bf16: the fused host snapshot differs from the device state")
+    timings = t.rescale(slots[2:], via_host=True)
+    check(timings.path == "host", f"bf16: the shrink took the {timings.path} lane")
+    say("bf16", rescale="4->2", path=timings.path,
+        **{k: f"{v:.4f}" for k, v in timings.as_dict().items()})
+    same, _ = state_matches(t.state_tree(), host)
+    say("bf16", restored_vs_snapshot_byte_exact=same)
+    check(same, "bf16: the state restored on the host lane differs from the snapshot")
+    del host
+    run(t, 1)
+    store = DiskCheckpointStore(ckpt_root)
+    full_s = t.save_disk(store, "bf16", fused=True)
+    full_b = store.last_bytes_written
+    run(t, 1)
+    delta_s = t.save_disk(store, "bf16", delta=True, fused=True)
+    delta_b = store.last_bytes_written
+    say("bf16", save_s=f"{full_s:.4f}", save_bytes=full_b, delta_save_s=f"{delta_s:.4f}",
+        delta_bytes=delta_b, delta_of_full=f"{delta_b / full_b:.6f}")
+    check(delta_b < full_b, f"bf16: the delta save wrote {delta_b} bytes, the full {full_b}")
+    t2 = ElasticTrainer(cfg, TrainJobConfig(**dict(job, seed=job["seed"] + 1)), slots[2:],
+                        device=device)
+    t0 = time.perf_counter()
+    step = t2.restore_disk(store, "bf16")
+    restore_s = time.perf_counter() - t0
+    same, nb = state_matches(t2.state_tree(), flatten_tree(t.state_tree()))
+    say("bf16", restart_step=step, restore_s=f"{restore_s:.4f}", bytes=nb,
+        restart_vs_saved_byte_exact=same)
+    check(step == t.step_idx and same, "bf16: the restart from disk does not hold the "
+          f"saved step's bytes (step {step} of {t.step_idx})")
+    del t
+    gc.collect()
+    run(t2, 1)
+    counts = ops.launch_counts_by_dtype()
+    # each fused snapshot (the checked one, the shrink's, two saves) packs
+    # the bf16 parameters, the float32 moments and the int32 counters
+    expected = {"flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
+    if on_card:
+        expected.update(flash_attention={"bfloat16": 2 * cfg.num_layers * sum(replicas)},
+                        pack={"bfloat16": 4, "float32": 4, "int32": 4})
+    r4 = [s for s, r in zip(step_s, replicas) if r == 4]
+    r2 = [s for s, r in zip(step_s, replicas) if r == 2]
+    say("bf16", arch=cfg.name, layers=cfg.num_layers, r4_step_s=[round(x, 4) for x in r4],
+        r2_step_s=[round(x, 4) for x in r2],
+        tokens_per_s=f"{job['global_batch'] * job['seq_len'] / min(step_s):.0f}",
+        peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}" if on_card else None,
+        launches=json.dumps(counts).replace(" ", ""),
+        expected=json.dumps(expected).replace(" ", ""),
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    check(counts == expected, f"bf16: launches {counts} != {expected}")
+    del t2
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return counts
+
+
+# -- phase 10 ------------------------------------------------------------------------
+
+def table2_provider(provisioning, market, seed_extra):
+    """benchmarks/table2_cloud_cost.py ``_pools``: a static fleet (all 8
+    nodes, or 4) or one node for the autoscaler; with ``spot30``, 30% of a
+    static fleet from the spot market (mean lifetime 1800 s)."""
+    spot = market == "spot30"
+    od_nodes = {"static_max": T2_MAX_NODES, "static_min": 4, "autoscaled": 1}[provisioning]
+    pools = []
+    if spot:
+        spot_nodes = {"static_max": 2, "static_min": 1, "autoscaled": 0}[provisioning]
+        od_nodes -= spot_nodes
+        pools.append(NodePool(
+            "spot", slots_per_node=T2_SLOTS_PER_NODE, price_per_slot_hour=T2_PRICE_SPOT,
+            market=SPOT, boot_latency=90.0, teardown_delay=30.0, max_nodes=T2_MAX_NODES,
+            initial_nodes=spot_nodes, spot_lifetime_mean=1800.0))
+    pools.append(NodePool(
+        "od", slots_per_node=T2_SLOTS_PER_NODE, price_per_slot_hour=T2_PRICE_OD,
+        boot_latency=120.0, teardown_delay=30.0, max_nodes=T2_MAX_NODES,
+        initial_nodes=od_nodes))
+    return CloudProvider(pools, seed=11 + seed_extra)
+
+
+def table2_cell(policy_name, provisioning, market, seed=7):
+    """One Table 2 cell (benchmarks/table2_cloud_cost.py ``run_cell``) through
+    the port's ``CloudSimulator``: its ``ScheduleMetrics``."""
+    specs = make_jacobi_jobs(seed=seed, n_jobs=16, submission_gap=90.0,
+                             sizes=("small", "medium"))
+    pcfg = (PolicyConfig.moldable() if policy_name == "moldable"
+            else PolicyConfig(rescale_gap=180.0))
+    prov = table2_provider(provisioning, market, seed_extra=(
+        T2_POLICIES.index(policy_name) * len(T2_PROVISIONING)
+        + T2_PROVISIONING.index(provisioning)))
+    autoscaler = None
+    if provisioning == "autoscaled":
+        autoscaler = NodeAutoscaler(prov, AutoscalerConfig(
+            tick_interval=30.0, scale_up_cooldown=30.0, scale_down_cooldown=120.0,
+            idle_timeout=180.0, headroom_slots=8,
+            spot_fraction=0.3 if market == "spot30" else 0.0))
+    sim = CloudSimulator(prov, pcfg, autoscaler=autoscaler,
+                         policy=PreemptingPolicy(pcfg) if policy_name == "elastic_preempt"
+                         else None)
+    for s in specs:
+        sim.submit(s, jacobi_workload(s.workload))
+    return sim.run()
+
+
+def table2_verdict(cells):
+    """Table 2's verdict row: autoscaled elastic against static-max elastic,
+    on demand: (cost saving, WMCT ratio, cheaper at a ratio under 1.5)."""
+    static = cells[("elastic", "static_max", "on_demand")]
+    scaled = cells[("elastic", "autoscaled", "on_demand")]
+    ratio = scaled.weighted_mean_completion / static.weighted_mean_completion
+    return (1.0 - scaled.total_cost / static.total_cost, ratio,
+            scaled.total_cost < static.total_cost and ratio < 1.5)
+
+
+def table2_phase(golden):
+    """All 18 Table 2 cells, the two golden ones held to the fixture, and the
+    verdict row, which must say PASS."""
+    t0 = time.perf_counter()
+    cells = {}
+    for key in ((p, v, m) for p in T2_POLICIES for v in T2_PROVISIONING for m in T2_MARKETS):
+        m = cells[key] = table2_cell(*key)
+        print(f"[cloud] table2.{'.'.join(key):<36s} {m.row()}", flush=True)
+        check(m.dropped_jobs == 0 and m.counters.get("completions") == 16,
+              f"table2 {key}: {m.counters}")
+    for key in T2_GOLDEN:
+        name = "table2." + ".".join(key)
+        got = json.loads(json.dumps(cells[key].to_dict(), sort_keys=True))
+        bad, err = golden_diff(got, golden[name])
+        say("cloud", golden=name, mismatches=len(bad), max_rel_err=err, rtol=GOLDEN_RTOL)
+        check(not bad, f"{name} against the golden metrics: {bad[:5]}")
+    saving, ratio, ok = table2_verdict(cells)
+    print(f"[cloud] table2.verdict.autoscaled_vs_static_max cost_saving={saving:.1%};"
+          f"wmct_ratio={ratio:.2f};{'PASS' if ok else 'FAIL'}", flush=True)
+    check(ok, "table2: autoscaled elastic is not cheaper than static-max at a "
+          "WMCT ratio under 1.5")
+    say("cloud", table2_cells=len(cells), seconds=f"{time.perf_counter() - t0:.3f}")
+
+
+def trace_cloud_provider():
+    """benchmarks/table4_traces.py's autoscaled fleet and autoscaler: one
+    node up, up to 8, on demand."""
+    prov = CloudProvider([NodePool(
+        "od", slots_per_node=T2_SLOTS_PER_NODE, price_per_slot_hour=T2_PRICE_OD,
+        boot_latency=120.0, teardown_delay=30.0,
+        max_nodes=T4_CLUSTER_SLOTS // T2_SLOTS_PER_NODE, initial_nodes=1)], seed=23)
+    return prov, NodeAutoscaler(prov, AutoscalerConfig(
+        tick_interval=30.0, scale_up_cooldown=30.0, scale_down_cooldown=120.0,
+        idle_timeout=180.0, headroom_slots=T2_SLOTS_PER_NODE))
+
+
+def replay_fixture(kind, name, trace_path):
+    """One fixture trace, normalized to 64 slots, through every entry of
+    ``REPLAY_VARIANTS`` and ``replay_cloud`` with the autoscaler, traced to
+    ``trace_path``.  Returns (trace, {run name: ScheduleMetrics})."""
+    trace = LOADERS[kind](fixture_path(name)).normalized(T4_CLUSTER_SLOTS)
+    cfg = ReplayConfig(cluster_slots=T4_CLUSTER_SLOTS)
+    runs = {}
+    with install(Tracer(trace_path)) as tracer:
+        for v in REPLAY_VARIANTS:
+            runs[v] = replay_variant(trace, v, cfg)
+        prov, asc = trace_cloud_provider()
+        runs["cloud_autoscaled"] = replay_cloud(trace, cfg, prov, variant="elastic",
+                                                autoscaler=asc).metrics
+    tracer.close()
+    return trace, runs
+
+
+def trace_phase(trace_dir):
+    """Both fixture traces: characterized, replayed through every variant and
+    the autoscaled cloud, each run audited with zero violations and every
+    job completed."""
+    t0 = time.perf_counter()
+    for kind, name in TRACE_FIXTURES:
+        path = os.path.join(trace_dir, f"replay_{kind}.jsonl")
+        trace, runs = replay_fixture(kind, name, path)
+        say("cloud", trace=name, **dataclasses.asdict(characterize(trace)))
+        for run, m in runs.items():
+            print(f"[cloud] replay.{kind}.{run:<17s} {m.row()}", flush=True)
+            check(m.dropped_jobs == 0 and m.counters.get("completions") == len(trace),
+                  f"{name} {run}: {m.counters.get('completions')} of {len(trace)} "
+                  f"completed, {m.dropped_jobs} dropped")
+        reports = audit_trace(f"replay_{kind}", Tracer.load(path))
+        check(len(reports) == len(runs), f"{name}: {len(reports)} audited runs")
+    say("cloud", traces=len(TRACE_FIXTURES), seconds=f"{time.perf_counter() - t0:.3f}")
+
+
+def fleet_replay(n_jobs, seed, days, nodes, slots_per_node):
+    """bench_simcore.py's fleet row: the Google-shape trace with priorities
+    bucketed, replayed ``elastic`` in bounded-memory mode.  Returns
+    (row, wall seconds of the replay)."""
+    trace = google_fleet_trace(n_jobs=n_jobs, seed=seed, days=days, nodes=nodes,
+                               slots_per_node=slots_per_node).bucket_priorities()
+    capacity = nodes * slots_per_node
+    t0 = time.perf_counter()
+    m = replay_variant(trace, "elastic",
+                       ReplayConfig(cluster_slots=capacity, rescale_gap=FLEET_RESCALE_GAP),
+                       slots_per_node=slots_per_node, util_series=False,
+                       track_phases=False)
+    wall = time.perf_counter() - t0
+    c = m.counters
+    return {"n_jobs": n_jobs, "nodes": nodes, "days": days,
+            "offered_load": trace.slot_seconds / (capacity * days * 86400.0),
+            "events": c.get("events", 0), "stale_events": c.get("stale_events", 0),
+            "completions": c.get("completions", 0), "rescales": c.get("rescales", 0),
+            "utilization": m.utilization, "dropped_jobs": m.dropped_jobs}, wall
+
+
+def fleet_phase(card):
+    """The fleet smoke row, held to BENCH_simcore.json's counters exactly and
+    its utilization to a relative ``GOLDEN_RTOL``."""
+    with open(BENCH_SIMCORE) as fh:
+        want = next(r for r in json.load(fh)["fleet"] if r["name"] == "smoke")
+    row, wall = fleet_replay(**FLEET_SMOKE)
+    retired = row["events"] + row["stale_events"]
+    say("cloud", fleet="smoke", **row, wall_s=f"{wall:.3f}",
+        jobs_per_s=f"{row['n_jobs'] / wall:.0f}",
+        events_retired_per_s=f"{retired / wall:.0f}", card=json.dumps(card))
+    bad = [f"{k}: {row[k]} != {want[k]}" for k in FLEET_EXACT if row[k] != want[k]]
+    _, err = golden_diff(row["utilization"], want["utilization"])
+    say("cloud", fleet="smoke", against="BENCH_simcore.json", mismatches=len(bad),
+        utilization_rel_err=err, rtol=GOLDEN_RTOL)
+    check(not bad and err <= GOLDEN_RTOL, f"fleet smoke row: {bad}, utilization "
+          f"{row['utilization']!r} vs {want['utilization']!r}")
+
+
+def cloud_phase(card, trace_dir):
+    """Phase 10: the cloud layer and the trace workloads on the host."""
+    t_phase = time.perf_counter()
+    with open(GOLDEN) as fh:
+        golden = json.load(fh)
+    table2_phase(golden)
+    trace_phase(trace_dir)
+    fleet_phase(card)
+    say("cloud", seconds=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1068,11 +1461,10 @@ def main():
     check(M.param_count(paths[1]) == MAMBA2_PARAMS,
           f"mamba2-1.3b has {M.param_count(paths[1])} parameters")
     records = [*check_flash(gen), check_rmsnorm(gen), *check_ssd(gen)]
-    records += [check_pack(cfg, gen) for cfg in paths]
+    records += [check_pack(cfg, gen, "pack", cfg.name) for cfg in paths]
+    records.append(check_pack(paths[0], gen, "pack_bf16", BF16_PATH, torch.bfloat16))
     runs = {cfg.name: main_path(cfg) for cfg in paths}
-    counts = {name: c for name, (c, _) in runs.items()}
-    for rec in records:     # each record's launches on the path its shapes are from
-        rec["launches"] = counts[rec["path"]][rec["name"]] if rec["path"] else 0
+    counts = {name: c for name, (c, _, _) in runs.items()}    # by path
     for cfg in paths:
         trajectory(cfg.name)
     for cfg in paths:
@@ -1081,10 +1473,14 @@ def main():
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as trace_dir:
         op_counts, op_traces = operator_phase(
             paths[0], paths[1].with_(num_layers=OPERATOR_MAMBA2_LAYERS), trace_dir)
-        for rec in records:
-            rec["operator_launches"] = op_counts[rec["name"]] if rec["path"] else 0
         simulator_phase(op_traces, [(cfg, runs[cfg.name][1]) for cfg in paths], card,
                         trace_dir)
+        counts[BF16_PATH] = bf16_phase(paths[0], os.path.join(trace_dir, "bf16_ckpt"),
+                                       runs[paths[0].name][2][0])
+        cloud_phase(card, trace_dir)
+    for rec in records:     # launches on the path its shapes are from, and the operator's
+        rec["launches"] = launches_of(rec, counts.get(rec["path"], {}))
+        rec["operator_launches"] = launches_of(rec, op_counts)
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card)
     print(json.dumps({"kernels": records}))

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of the elastic training job, its live operator and the
-policy simulator, beside the JAX package.
+"""PyTorch/CUDA port of the elastic training job, its live operator, the
+policy simulator, the cloud layer and the trace workloads, beside the JAX
+package.
 
 The port imports ``torch``, numpy and the standard library only; it never
 imports ``jax``, ``ml_dtypes`` or any module of ``repro``.  Framework-free code

@@ -8,8 +8,10 @@ Each save writes an ``.npz`` of the leaves it must write plus a json manifest
 changed since the previous manifest and references the rest, so delta chains
 and checkpoints load in both directions between the JAX package and the port.
 
-bfloat16 leaves raise ``NotImplementedError`` here: the JAX package writes
-them through ``ml_dtypes``, which the port does not use.
+A bfloat16 leaf is held as ``V2`` bits (``reshard.host_array``): the npz file
+stores it as the JAX package's does, its hash names the dtype ``bfloat16`` as
+the JAX package's hash of the ``ml_dtypes`` leaf does, and ``load`` returns
+it as ``V2``.
 """
 from __future__ import annotations
 
@@ -22,12 +24,12 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.checkpoint.reshard import snapshot_to_host
+from repro_torch.checkpoint.reshard import is_bf16_host, snapshot_to_host
 
 
 def _leaf_hash(arr: np.ndarray) -> str:
     h = hashlib.blake2b(digest_size=16)
-    h.update(str(arr.dtype).encode())
+    h.update(("bfloat16" if is_bf16_host(arr) else str(arr.dtype)).encode())
     h.update(str(arr.shape).encode())
     h.update(np.ascontiguousarray(arr).view(np.uint8).data)
     return h.hexdigest()
@@ -146,13 +148,7 @@ class DiskCheckpointStore:
         for fname, ks in by_file.items():       # open each referenced npz once
             with np.load(os.path.join(d, fname)) as z:
                 for k in ks:
-                    arr = z[leaves[k]["slot"]]
-                    if arr.dtype.kind == "V":
-                        raise NotImplementedError(
-                            f"leaf {k!r} has numpy dtype {arr.dtype} "
-                            "(bfloat16 via ml_dtypes), which the port cannot "
-                            "read yet")
-                    flat[k] = arr
+                    flat[k] = z[leaves[k]["slot"]]
         return flat, manifest
 
     def nbytes_on_disk(self, job_id: str) -> int:

@@ -74,13 +74,38 @@ def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_path_keys(tree)]
 
 
+# numpy has no bfloat16 without ``ml_dtypes``, which the port does not use: a
+# bfloat16 leaf's numpy form is a 2-byte void view of its bits, the form in
+# which the JAX package's npz files already hold such a leaf
+BF16_HOST = np.dtype("V2")
+
+
+def is_bf16_host(arr: np.ndarray) -> bool:
+    """True for the host form of a bfloat16 leaf: a plain 2-byte void array
+    (``V2``, as an npz file returns it) or an ``ml_dtypes.bfloat16`` array,
+    whose dtype is of kind ``V`` too."""
+    return arr.dtype.kind == "V" and arr.dtype.itemsize == 2 \
+        and arr.dtype.fields is None
+
+
 def host_array(t: torch.Tensor) -> np.ndarray:
-    """numpy view of a CPU tensor (no copy).  bfloat16 has no numpy dtype
-    without ``ml_dtypes``, which the port does not use."""
+    """numpy view of a CPU tensor (no copy); a bfloat16 tensor comes back as
+    a ``V2`` view of its bits."""
     if t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "bfloat16 leaves have no numpy form in the port yet (no ml_dtypes)")
+        return t.view(torch.int16).numpy().view(BF16_HOST)
     return t.numpy()
+
+
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """CPU tensor over a host array's memory (no copy): the inverse of
+    ``host_array``.  A bfloat16 host leaf (``is_bf16_host``) becomes a
+    ``torch.bfloat16`` tensor of the same bits; any other void dtype is
+    refused."""
+    if arr.dtype.kind == "V":
+        if not is_bf16_host(arr):
+            raise TypeError(f"numpy dtype {arr.dtype} is not a bfloat16 leaf")
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _copy_to_host(t: torch.Tensor) -> np.ndarray:
@@ -113,7 +138,7 @@ def restore_from_host(host_flat: Dict[str, np.ndarray], template,
         arr = np.asarray(arr)
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape {arr.shape} does not fit {tuple(leaf.shape)}")
-        t = torch.from_numpy(arr).to(device=device, dtype=leaf.dtype, copy=True)
+        t = host_tensor(arr).to(device=device, dtype=leaf.dtype, copy=True)
         return t.requires_grad_(leaf.requires_grad)
     keys = tree_path_keys(template)
     flat = {k: put(leaf, host_flat[k]) for k, leaf in keys}

@@ -8,7 +8,8 @@ the discrete-event simulator that evaluates the policy.
                         core.perf_model (an H100 ``ArchScalingModel``)
 Beyond-paper:           core.autoscale (aging, cost-benefit, preemption)
 
-The JAX package's cloud and workloads layers are not ported yet.
+The cloud layer (``repro_torch.cloud``) and the trace workloads
+(``repro_torch.workloads``) build on these, as in the JAX package.
 """
 from repro_torch.core.autoscale import (AgingPolicy, CostBenefitPolicy,
                                         PreemptingPolicy)

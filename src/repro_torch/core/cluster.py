@@ -11,8 +11,8 @@ drains displace the jobs actually resident on a node (paper: the operator
 kills/drains specific pods on specific nodes), not "some" victims.
 
 Base capacity given at construction becomes one node (``base``) or, with
-``slots_per_node``, a row of ``base00..``; a cloud layer (the JAX
-package's ``repro.cloud``, not yet ported) attaches and detaches whole nodes via :meth:`add_node` / :meth:`remove_node`.
+``slots_per_node``, a row of ``base00..``; the cloud layer (repro_torch.cloud)
+attaches and detaches whole nodes via :meth:`add_node` / :meth:`remove_node`.
 A spot preemption cordons a node out from under running jobs, so
 ``free_slots`` can transiently go negative; ``overcommit`` exposes the
 deficit the caller must resolve (migrate/shrink/preempt).
@@ -100,7 +100,7 @@ class Cluster:
 
     def remove_node(self, node_id: str) -> int:
         """Detach an EMPTY node's slots.  Callers must displace residents
-        first (migrate/shrink/preempt — see the JAX package's spot kills);
+        first (migrate/shrink/preempt — see repro_torch.cloud.sim spot kills);
         raises :class:`PlacementError` while any job is still resident."""
         if node_id not in self.placement.nodes():
             raise KeyError(node_id)

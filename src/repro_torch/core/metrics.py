@@ -190,7 +190,7 @@ class ScheduleMetrics:
     weighted_mean_completion: float
     rescale_count: int
     dropped_jobs: int = 0
-    # cloud runs (the JAX package's repro.cloud) — zero on fixed-capacity runs
+    # cloud runs (repro_torch.cloud) — zero on fixed-capacity simulations
     total_cost: float = 0.0        # $ billed: node capacity + transfer
     idle_cost: float = 0.0         # $ of provisioned-but-unused slot time
     node_hours: float = 0.0        # billed node-hours
@@ -259,8 +259,9 @@ class ScheduleMetrics:
 def compute_metrics(jobs: Sequence[JobState], util: UtilizationLog, *,
                     latency=None, counters: Optional[Dict[str, int]] = None,
                     phases=None) -> ScheduleMetrics:
-    """Cost fields stay at their zero defaults here (the JAX package's cloud
-    simulator fills them).  ``latency`` is a
+    """Cost fields stay at their zero defaults here; CloudSimulator's
+    ``_final_metrics`` fills them from its CostReport via
+    dataclasses.replace.  ``latency`` is a
     :class:`repro_torch.obs.stats.LatencyRecorder` (or anything with
     ``percentile_fields()``); ``counters`` a plain dict; ``phases`` a
     :class:`repro_torch.obs.critical_path.PhaseLedger` whose per-job makespan

@@ -377,9 +377,8 @@ class Simulator:
             self.policy.on_job_complete(self.cluster, freed, self.now,
                                         self.actions)
         else:
-            # extension point: a cloud layer (the JAX package's repro.cloud,
-            # not yet ported) adds node_up / node_down / spot_kill /
-            # autoscale_tick event kinds
+            # extension point: repro_torch.cloud adds node_up / node_down /
+            # spot_kill / autoscale_tick event kinds
             self._handle_event(ev)
 
     def _final_metrics(self) -> ScheduleMetrics:
@@ -461,8 +460,8 @@ def variant_setup(variant: str, specs: Sequence[JobSpec], *,
     schedulers plus the preempting extension).  Returns ``(specs, pcfg,
     policy)`` where ``policy`` is None for the plain config-driven
     ElasticPolicy.  Shared by :func:`run_variant` and the trace-replay layer
-    (the JAX package's ``repro.workloads.replay``; not yet ported) so the
-    variant semantics cannot drift."""
+    (``repro_torch.workloads.replay``) so the variant semantics cannot
+    drift."""
     policy = None
     if variant == "rigid_min":
         specs = [s.rigid(s.min_replicas) for s in specs]

@@ -3,12 +3,14 @@
 Counterpart of ``repro.kernels.flash_attention.flash_attention_fwd`` (the TPU
 kernel).  A CUDA tensor launches the hand-written kernel or raises; a CPU
 tensor takes the plain version in ``kernels/ref.py``.  ``launches`` counts
-kernel launches and nothing else.
+kernel launches and nothing else, by the dtype of the instantiation launched
+(``{"float32": n, "bfloat16": n}``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -82,8 +84,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     int(causal), _DTYPES[q.dtype], stream)
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
-    flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches[str(q.dtype).removeprefix("torch.")] += 1
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+flash_attention_fwd.launches = Counter()

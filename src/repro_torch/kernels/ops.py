@@ -25,13 +25,20 @@ _COUNTED = {"flash_attention": flash_attention_fwd, "pack": pack_leaves,
             "rmsnorm": _rmsnorm_kernel, "ssd": ssd_scan_fwd}
 
 
+def launch_counts_by_dtype() -> Dict[str, Dict[str, int]]:
+    """{kernel: {dtype name: launches}}: each wrapper's own count, kept by
+    the dtype of the instantiation it launched."""
+    return {name: dict(fn.launches) for name, fn in _COUNTED.items()}
+
+
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in _COUNTED.items()}
+    """{kernel: launches} over every dtype."""
+    return {name: sum(fn.launches.values()) for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
-        fn.launches = 0
+        fn.launches.clear()
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -87,4 +94,4 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
 
 
 __all__ = ["flash_attention", "rmsnorm", "ssd", "launch_counts",
-           "reset_launch_counts"]
+           "launch_counts_by_dtype", "reset_launch_counts"]

@@ -4,12 +4,14 @@ the fused device->host snapshot built on it.
 Counterpart of ``repro.kernels.pack`` (``pack_leaves_pallas`` and
 ``packed_snapshot_to_host``).  A CUDA tensor launches the hand-written kernel
 or raises; CPU tensors take ``ref.pack_leaves_ref``.  ``pack_leaves.launches``
-counts kernel launches and nothing else.
+counts kernel launches and nothing else, by the leaves' dtype (bfloat16
+takes the 2-byte instantiation).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -65,11 +67,11 @@ def pack_leaves(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
                     out.element_size(), stream)
     if err:
         raise RuntimeError(f"pack_leaves launch failed: cudaError {err}")
-    pack_leaves.launches += 1
+    pack_leaves.launches[str(dt).removeprefix("torch.")] += 1
     return out
 
 
-pack_leaves.launches = 0
+pack_leaves.launches = Counter()
 
 
 def packed_snapshot_to_host(flat: Dict[str, torch.Tensor]
@@ -77,7 +79,9 @@ def packed_snapshot_to_host(flat: Dict[str, torch.Tensor]
     """Fused device->host snapshot of a flat ``{key: tensor}`` dict: one
     packed buffer and one copy into (pinned, for CUDA) host memory per dtype
     group.  The returned arrays are views into that fresh host buffer, which
-    no live tensor shares.  Zero-size leaves are not sent."""
+    no live tensor shares; a bfloat16 group goes through the kernel's 2-byte
+    instantiation and comes back as ``V2`` views (``reshard.host_array``).
+    Zero-size leaves are not sent."""
     groups: Dict[torch.dtype, List[str]] = {}
     out: Dict[str, np.ndarray] = {}
     for k, t in flat.items():

@@ -14,10 +14,12 @@ as CUDA would).
 A CUDA tensor launches the kernel or raises; a CPU tensor takes
 ``ref.rmsnorm_ref``.  ``triton`` is imported inside the launching function,
 because it exists only where there is a card.  ``rmsnorm.launches`` counts
-kernel launches and nothing else.  (No ``from __future__ import annotations``
-here: Triton reads the ``tl.constexpr`` annotations as objects.)
+kernel launches and nothing else, by x's dtype.  (No ``from __future__
+import annotations`` here: Triton reads the ``tl.constexpr`` annotations as
+objects.)
 """
 import functools
+from collections import Counter
 
 import torch
 
@@ -80,8 +82,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
         kernel[grid](x2, w, out, n, D, x2.stride(0), out.stride(0), eps,
                      BLOCK_ROWS=block_rows, BLOCK_D=block_d,
                      num_warps=8 if block_d >= 2048 else 4)
-    rmsnorm.launches += 1
+    rmsnorm.launches[str(x.dtype).removeprefix("torch.")] += 1
     return out.reshape(x.shape)
 
 
-rmsnorm.launches = 0
+rmsnorm.launches = Counter()

@@ -6,12 +6,13 @@ tensor takes the plain version ``ref.ssd_chunked_ref``.  The kernel runs as
 three launches on the current stream (chunk states, state passing, chunk
 scan; ``ref.ssd_split_ref`` is their plain version), with scratch allocated
 here.  ``ssd_scan_fwd.launches`` counts wrapper calls that launched the
-kernel, and nothing else.
+kernel, and nothing else, by x's dtype.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import torch
 
@@ -89,8 +90,8 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                     _DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError(f"ssd_scan_fwd launch failed: cudaError {err}")
-    ssd_scan_fwd.launches += 1
+    ssd_scan_fwd.launches[str(x.dtype).removeprefix("torch.")] += 1
     return y
 
 
-ssd_scan_fwd.launches = 0
+ssd_scan_fwd.launches = Counter()

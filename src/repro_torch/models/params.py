@@ -18,7 +18,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.reshard import (nest_flat, snapshot_to_host,
+from repro_torch.checkpoint.reshard import (host_tensor, nest_flat,
+                                            snapshot_to_host,
                                             tree_path_keys, unflatten_tree)
 from repro_torch.configs.base import ATTN, FF_NONE, FF_SWIGLU, SSM, ModelConfig
 from repro_torch.device import resolve_device
@@ -163,16 +164,14 @@ def from_numpy_flat(flat: dict, device: Union[str, torch.device] = "cuda", *,
     """``{flatten_tree key: ndarray}`` (the JAX package's parameters or AdamW
     state, as numpy) -> the port's nested tree of tensors on ``device``.
 
-    Floating leaves get ``requires_grad`` unless told otherwise."""
+    A 2-byte void array (an ``ml_dtypes.bfloat16`` array of the JAX package,
+    or a ``V2`` array read back from an npz file) becomes a bfloat16 tensor
+    of the same bits; no other void dtype is accepted.  Floating leaves get
+    ``requires_grad`` unless told otherwise."""
     dev = resolve_device(device)
 
     def put(a):
-        arr = np.asarray(a)
-        if arr.dtype.kind == "V":
-            raise NotImplementedError(
-                f"numpy dtype {arr.dtype} (bfloat16 via ml_dtypes) cannot be "
-                "read without ml_dtypes")
-        t = torch.from_numpy(np.array(arr, copy=True)).to(dev)
+        t = host_tensor(np.array(a, copy=True)).to(dev)
         rg = t.is_floating_point() if requires_grad is None else requires_grad
         return t.requires_grad_(rg and t.is_floating_point())
     return nest_flat({k: put(v) for k, v in flat.items()})

@@ -1,8 +1,8 @@
 """Decision-audit records: *why* the stack did what it did.
 
-Copy of ``repro.obs.decisions`` (framework-free).  Of the choice points
-below, the port runs ``admit``, ``redistribute`` and ``preempt_select``; the
-others belong to the JAX package's cloud layer, still to port.
+Copy of ``repro.obs.decisions`` (framework-free).  The port runs every
+choice point below: ``admit``, ``redistribute`` and ``preempt_select`` in
+the policy, the others in its cloud layer (``repro_torch.cloud``).
 
 Every choice point in the scheduling stack can carry a :class:`DecisionLog`
 (None by default — zero overhead when tracing is off).  A record names the

@@ -4,7 +4,8 @@
 chain, the barrier never publishes a half-written step and re-raises a
 write's error, ``close()`` joins the worker, delta chains load in both
 directions between the packages, and an in-place step right after
-``save_disk_async`` never reaches the checkpoint."""
+``save_disk_async`` never reaches the checkpoint.  bfloat16 leaves hash as
+the JAX package hashes them and their npz files load in both packages."""
 import threading
 
 import numpy as np
@@ -12,12 +13,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
 from repro.checkpoint import AsyncCheckpointer as JAsync  # noqa: E402
 from repro.checkpoint import DiskCheckpointStore as JDiskStore  # noqa: E402
+from repro.checkpoint.disk import _leaf_hash as jleaf_hash  # noqa: E402
 from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
                                     DiskCheckpointStore, flatten_tree)
-from repro_torch.checkpoint.reshard import tree_map  # noqa: E402
+from repro_torch.checkpoint.disk import _leaf_hash  # noqa: E402
+from repro_torch.checkpoint.reshard import (host_array, host_tensor,  # noqa: E402
+                                            tree_map)
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core.elastic import (ElasticTrainer, TrainJobConfig,  # noqa: E402
                                       local_slots)
@@ -151,3 +156,66 @@ def test_in_place_step_after_save_disk_async_never_reaches_the_checkpoint(
     assert not np.array_equal(after["params/embed"], before["params/embed"])
     assert not np.array_equal(after["opt/m/embed"], before["opt/m/embed"])
     t._async_ckpt.close()
+
+
+def _bf16(seed, shape):
+    """An ``ml_dtypes.bfloat16`` array, as the JAX package holds one."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(shape).astype(np.float32).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(), (5,), (3, 4)])
+def test_bf16_leaf_hash_equals_the_jax_packages(shape):
+    a = _bf16(1, shape)
+    assert str(a.dtype) == "bfloat16"
+    port = host_array(torch.from_numpy(a.view(np.int16)).view(torch.bfloat16))
+    assert port.dtype == np.dtype("V2") and port.tobytes() == a.tobytes()
+    want = jleaf_hash(a)
+    assert _leaf_hash(port) == _leaf_hash(a) == want
+    assert jleaf_hash(a.view(np.int16)) != want      # the dtype is in the hash
+
+
+def _bf16_state(step: int):
+    """A state whose ``cold`` bf16 leaf never changes and whose other leaves
+    change every step, as ml_dtypes/numpy arrays."""
+    return {"params": {"cold": _bf16(2, (8, 16)),
+                       "hot": np.full((4, 5), step, np.float32).astype(jnp.bfloat16)},
+            "opt": {"m": np.full((3,), step, np.float32)},
+            "step": np.asarray(step, np.int32)}
+
+
+def _save(writer, root, step, delta):
+    tree = _bf16_state(step)
+    if writer == "port":
+        tree = tree_map(lambda a: host_tensor(np.array(a)), tree)
+        store = DiskCheckpointStore(root)
+    else:
+        tree = tree_map(jnp.asarray, tree)
+        store = JDiskStore(root)
+    store.save("j", step, tree, delta=delta)
+    return store.last_bytes_written
+
+
+@pytest.mark.parametrize("full_writer", ["port", "jax"])
+@pytest.mark.parametrize("delta_writer", ["port", "jax"])
+def test_bf16_checkpoints_load_across_packages(tmp_path, full_writer, delta_writer):
+    """A full save by one package and a delta save by the same or the other
+    one: the delta references the unchanged bf16 leaf (the hashes agree
+    across packages), and both packages load both steps with the saved
+    bytes, bf16 leaves as ``V2``."""
+    root = str(tmp_path)
+    full = _save(full_writer, root, 1, delta=False)
+    delta = _save(delta_writer, root, 2, delta=True)
+    assert 0 < delta < full
+    for reader in (DiskCheckpointStore(root), JDiskStore(root)):
+        for step in (1, 2):
+            flat, manifest = reader.load("j", step=step)
+            assert manifest["delta"] == (step == 2)
+            want = flatten_tree(_bf16_state(step))
+            assert sorted(flat) == sorted(want)
+            for k, a in want.items():
+                got = np.asarray(flat[k])
+                assert got.tobytes() == a.tobytes(), (reader, step, k)
+                assert got.dtype == (np.dtype("V2") if a.dtype.kind == "V" else a.dtype)
+        assert manifest["leaves"]["params/cold"]["file"] == "step_000000001.npz"
+        assert manifest["leaves"]["params/hot"]["file"] == "step_000000002.npz"

@@ -11,7 +11,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
-                                    DiskCheckpointStore, flatten_tree)
+                                    DiskCheckpointStore, flatten_tree,
+                                    restore_from_host, snapshot_to_host)
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core.elastic import (ElasticTrainer, TrainJobConfig,  # noqa: E402
                                       local_slots)
@@ -41,10 +42,10 @@ def test_flash_kernel_matches_plain_on_card(dtype, B, S, H, KV, hd):
     dev = _card()
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(dev, dt) for a in _qkv(S, B, S, H, KV, hd))
-    before = flash_attention_fwd.launches
+    before = ops.launch_counts()["flash_attention"]
     out, lse = flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
-    assert flash_attention_fwd.launches == before + 1
+    assert ops.launch_counts()["flash_attention"] == before + 1
     tol = 2e-5 if dtype == "float32" else 2e-2
     exp = ref.flash_attention_ref(q.float(), k.float(), v.float()).to(dt)
     torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
@@ -69,10 +70,10 @@ def _flash_against_plain(dev, dtype, B, S, H, KV, hd, causal):
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(dev, dt)
                for a in _qkv(S + H + KV, B, S, H, KV, hd))
-    before = flash_attention_fwd.launches
+    before = ops.launch_counts()["flash_attention"]
     out, lse = flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention_fwd.launches == before + 1
+    assert ops.launch_counts()["flash_attention"] == before + 1
     assert out.dtype == dt and tuple(out.shape) == (B, S, H, hd)
     tol = 2e-5 if dtype == "float32" else 2e-2
     exp = ref.flash_attention_ref(q.float(), k.float(), v.float(),
@@ -114,9 +115,9 @@ def test_flash_kernel_reads_strided_and_misaligned_views_on_card():
         qs = t[..., :512].reshape(1, 160, 8, 64)
         ks = t[..., 512:640].reshape(1, 160, 2, 64)
         vs = t[..., 640:].reshape(1, 160, 2, 64)
-        before = flash_attention_fwd.launches
+        before = ops.launch_counts()["flash_attention"]
         out, _ = flash_attention_fwd(qs, ks, vs)
-        assert flash_attention_fwd.launches == before + 1
+        assert ops.launch_counts()["flash_attention"] == before + 1
         torch.testing.assert_close(out, ref.flash_attention_ref(q, k, v),
                                    atol=2e-5, rtol=2e-5)
 
@@ -170,10 +171,10 @@ def test_ssd_kernel_matches_plain_on_card(dtype, B, L, H, P, G, N, chunk):
     dt_ = getattr(torch, dtype)
     x, dt, a_log, b, c = _ssd_inputs(dev, L + G, B, L, H, P, G, N)
     x, b, c = x.to(dt_), b.to(dt_), c.to(dt_)
-    before = ssd_scan_fwd.launches
+    before = ops.launch_counts()["ssd"]
     out = ssd_scan_fwd(x, dt, a_log, b, c, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_scan_fwd.launches == before + 1 and out.dtype == dt_
+    assert ops.launch_counts()["ssd"] == before + 1 and out.dtype == dt_
     tol = 1e-4 if dtype == "float32" else 5e-2       # tests/test_kernels.py:79
     exp = ref.ssd_chunked_ref(x, dt, a_log, b, c, chunk=chunk)
     torch.testing.assert_close(out.float(), exp.float(), atol=tol, rtol=tol)
@@ -228,10 +229,10 @@ def _ssd_against_plain(x, dt, a_log, b, c, chunk, exp_inputs=None):
     """One launch of the SSD kernel held against ``ssd_chunked_ref`` and the
     plain split, at the reference's tolerance; launches up by one."""
     tol = 1e-4 if x.dtype == torch.float32 else 5e-2   # tests/test_kernels.py:79
-    before = ssd_scan_fwd.launches
+    before = ops.launch_counts()["ssd"]
     out = ssd_scan_fwd(x, dt, a_log, b, c, chunk=chunk)
     torch.cuda.synchronize()
-    assert ssd_scan_fwd.launches == before + 1 and out.dtype == x.dtype
+    assert ops.launch_counts()["ssd"] == before + 1 and out.dtype == x.dtype
     assert torch.isfinite(out).all()
     args = exp_inputs or (x, dt, a_log, b, c)
     for exp in (ref.ssd_chunked_ref(*args, chunk=chunk),
@@ -277,6 +278,28 @@ def test_ssd_kernel_strided_views_and_large_decay_on_card(offset, scale):
 
 
 @pytest.mark.cuda
+def test_fused_snapshot_of_a_bf16_group_is_byte_exact_on_card():
+    """A fused host snapshot of bfloat16 leaves on the card: one launch of
+    the pack kernel's 2-byte instantiation for the group, ``V2`` host views
+    holding the leaves' bits, and a restore to the card with the same bits."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn((4096, 1024), device=dev, generator=gen).bfloat16(),
+            "b": torch.randn((1000,), device=dev, generator=gen).bfloat16(),
+            "s": torch.tensor(1.5, device=dev, dtype=torch.bfloat16)}
+    want = {k: v.cpu().view(torch.int16).numpy().tobytes() for k, v in tree.items()}
+    before = ops.launch_counts_by_dtype()["pack"].get("bfloat16", 0)
+    host = snapshot_to_host(tree, fused=True)
+    assert ops.launch_counts_by_dtype()["pack"]["bfloat16"] == before + 1
+    assert all(host[k].dtype == np.dtype("V2") for k in tree)
+    assert {k: host[k].tobytes() for k in tree} == want
+    back = restore_from_host(host, tree, dev)
+    for k, t in tree.items():
+        assert back[k].device.type == "cuda" and back[k].dtype == torch.bfloat16
+        assert torch.equal(back[k].view(torch.int16), t.view(torch.int16)), k
+
+
+@pytest.mark.cuda
 def test_fused_async_snapshot_lands_the_pre_update_bytes_on_card(tmp_path):
     """``AsyncCheckpointer.submit(fused=True)`` returns only after the packed
     device-to-host copy is complete: an in-place update launched at once
@@ -289,9 +312,9 @@ def test_fused_async_snapshot_lands_the_pre_update_bytes_on_card(tmp_path):
     want = {k: v.cpu().numpy().tobytes() for k, v in tree.items()}
     store = DiskCheckpointStore(str(tmp_path))
     ac = AsyncCheckpointer(store)
-    before = pack_leaves.launches
+    before = ops.launch_counts()["pack"]
     ac.submit("j", 1, tree, fused=True)
-    assert pack_leaves.launches == before + 1
+    assert ops.launch_counts()["pack"] == before + 1
     for v in tree.values():
         v.mul_(2.0).add_(1.0)
     ac.close()
@@ -314,9 +337,9 @@ def test_trainer_save_disk_async_then_step_on_card(tmp_path):
     want = {k: v.detach().cpu().numpy().tobytes()
             for k, v in flatten_tree(t.state_tree()).items()}
     store = DiskCheckpointStore(str(tmp_path))
-    before = pack_leaves.launches
+    before = ops.launch_counts()["pack"]
     t.save_disk_async(store, "j", fused=True)
-    assert pack_leaves.launches == before + 2
+    assert ops.launch_counts()["pack"] == before + 2
     t.step()
     t.ckpt_barrier()
     flat, manifest = store.load("j")

@@ -58,13 +58,31 @@ SIMULATOR_MODULES = {
 }
 
 
+# the cloud layer: node pools and the spot market, cost accounting, the
+# node autoscaler, spot bidding and the cloud simulator
+CLOUD_MODULES = {
+    "repro_torch.cloud", "repro_torch.cloud.provider", "repro_torch.cloud.cost",
+    "repro_torch.cloud.node_autoscaler", "repro_torch.cloud.bidding",
+    "repro_torch.cloud.sim",
+}
+
+# the trace workloads: ingestion, synthetic generators, stats and replay
+WORKLOAD_MODULES = {
+    "repro_torch.workloads", "repro_torch.workloads.trace",
+    "repro_torch.workloads.synthetic", "repro_torch.workloads.stats",
+    "repro_torch.workloads.replay",
+}
+
+
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 54, proc.stdout
+    assert n >= 65, proc.stdout
     names = set(proc.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
     assert OPERATOR_MODULES <= names, sorted(OPERATOR_MODULES - names)
     assert SIMULATOR_MODULES <= names, sorted(SIMULATOR_MODULES - names)
+    assert CLOUD_MODULES <= names, sorted(CLOUD_MODULES - names)
+    assert WORKLOAD_MODULES <= names, sorted(WORKLOAD_MODULES - names)

@@ -81,6 +81,22 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                                    "rmsnorm": 0, "ssd": 0}
 
 
+def test_launch_counts_by_dtype_count_no_cpu_call_and_reset():
+    ops.reset_launch_counts()
+    q, k, v = map(torch.from_numpy, _qkv(0, 1, 32, 4, 2, 16))
+    ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    pack_leaves([q.bfloat16(), k.bfloat16()])
+    none = {"flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
+    assert ops.launch_counts_by_dtype() == none
+    pack_leaves.launches["bfloat16"] += 3        # as card launches leave them
+    pack_leaves.launches["float32"] += 1
+    assert ops.launch_counts_by_dtype()["pack"] == {"bfloat16": 3, "float32": 1}
+    assert ops.launch_counts()["pack"] == 4      # the total is derived
+    ops.reset_launch_counts()
+    assert ops.launch_counts_by_dtype() == none
+    assert ops.launch_counts() == dict.fromkeys(none, 0)
+
+
 def test_wrappers_refuse_devices_they_do_not_serve():
     q = torch.empty((1, 32, 4, 16), device="meta")
     k = torch.empty((1, 32, 2, 16), device="meta")

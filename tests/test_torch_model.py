@@ -141,6 +141,32 @@ def test_from_and_to_numpy_flat_roundtrip(smoke):
         assert back[k].tobytes() == flat[k].tobytes()
 
 
+@pytest.mark.parametrize("arch", ARCHS)
+def test_from_numpy_flat_takes_the_jax_packages_bf16_params(tmp_path, arch):
+    """The JAX package's bfloat16 parameters (``ml_dtypes`` arrays), and the
+    same arrays read back from an npz file (``V2``), load as bfloat16 tensors
+    of the same bits; no other void dtype is taken."""
+    jparams = JM.init_params(jsmoke_config(arch).with_(dtype="bfloat16"),
+                             jax.random.PRNGKey(0))
+    flat = {k: np.asarray(v) for k, v in jflatten(jparams).items()}
+    assert any(str(a.dtype) == "bfloat16" for a in flat.values())
+    np.savez(tmp_path / "p.npz", **{f"a{i}": a for i, a in enumerate(flat.values())})
+    with np.load(tmp_path / "p.npz") as z:
+        from_npz = {k: z[f"a{i}"] for i, k in enumerate(flat)}
+    for source in (flat, from_npz):
+        got = flatten_tree(M.from_numpy_flat(source, device="cpu"))
+        assert list(got) == list(flat)
+        for k, a in flat.items():
+            t = got[k].detach()
+            if str(a.dtype) == "bfloat16":
+                assert t.dtype == torch.bfloat16 and got[k].requires_grad
+                assert t.view(torch.int16).numpy().tobytes() == a.tobytes(), k
+            else:
+                assert t.numpy().tobytes() == a.tobytes(), k
+    with pytest.raises(TypeError):
+        M.from_numpy_flat({"w": np.zeros(2, np.float32).view("V4")}, device="cpu")
+
+
 def test_loss_and_every_gradient_match_jax(smoke):
     jcfg, cfg, jparams, flat, batch = smoke
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}

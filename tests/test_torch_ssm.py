@@ -142,7 +142,7 @@ def test_cpu_ssd_counts_no_launch():
                             0, device="cpu"),
               {"tokens": torch.zeros((1, 16), dtype=torch.long),
                "labels": torch.zeros((1, 16), dtype=torch.long)})
-    assert ops.launch_counts()["ssd"] == 0 and ssd_scan_fwd.launches == 0
+    assert ops.launch_counts()["ssd"] == 0 and not ssd_scan_fwd.launches
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take():
