@@ -19,7 +19,8 @@ without a CUDA device the script exits non-zero before printing a result:
    attention and the SSD scan, in bf16: error, kernel / plain / library ms
    (CUDA events), the least time the card could take (bound), its share
    (of_bound = bound / kernel) and the achieved TFLOP/s; for the SSD scan,
-   the device ms of each of its three launches (torch.profiler);
+   the device ms of each of its three launches (torch.profiler); flash
+   attention and the parameters' pack also at phase 11's granite-moe shapes;
 4. the main paths, each an ElasticTrainer at global batch 8 x 2048 on 4
    logical replicas, stepped, shrunk to 2 on the host lane, stepped,
    expanded to 4 on the p2p lane, stepped; launch counts are zeroed just
@@ -27,9 +28,12 @@ without a CUDA device the script exits non-zero before printing a result:
    ``torch.profiler`` (device busy share, kernels by device time).  First
    yi-6b at full width with depth cut to 4 layers, then mamba2-1.3b at its
    full published size (48 layers, 1,344,052,224 parameters);
-5. a static vs rescaled trajectory check at depth 1, for each path;
+5. a static vs rescaled trajectory check at depth 1, for each path and for
+   granite-moe-3b-a800m (whose load-balance loss is the global batch's at
+   every replica count);
 6. ``repro_torch.launch.train --smoke`` on the card with ``--rescale-at``,
-   ``--checkpoint-dir`` and ``--restart``, for each arch;
+   ``--checkpoint-dir`` and ``--restart``, for each arch the port builds
+   (SwiGLU, GELU, squared ReLU, qk_norm, MoE and Mamba-2);
 7. the live operator (``ElasticClusterController``) at full width, with
    the launch counts zeroed before the phase and read after it: scenario A
    (priority shrink and expand-back of two yi-6b depth-4 jobs on 8 logical
@@ -75,7 +79,17 @@ without a CUDA device the script exits non-zero before printing a result:
     completed; and bench_simcore's fleet smoke row (20,000 jobs on 10,000
     slots over 3 days, bounded-memory mode) held to ``BENCH_simcore.json``
     (counters exactly, utilization to ``GOLDEN_RTOL``), with its wall time
-    and jobs/s.
+    and jobs/s;
+11. the MoE path, ``[moe]`` lines: granite-moe-3b-a800m at its full
+    published size (32 layers, d_model 1536, 24 heads, 8 KV heads, 40
+    experts top-8 of 512, tied 49,408-row embedding; 3,299,182,080
+    parameters, 881,690,112 active) in float32 through phase 4's sequence at
+    the operator's peak rate, launch counts zeroed before and read after:
+    every loss and aux finite, aux above 0, flash launches 2 x 32 x 20, pack
+    launches on the host lane, the restored state byte for byte the snapshot
+    it was restored from, peak memory under 80 GB; step s, tokens/s, rescale
+    stages, peak memory and host RAM, one more step under ``torch.profiler``,
+    and the H100 arch model (active parameters) beside the measured step.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
@@ -86,14 +100,18 @@ which runs on every path, has one record per path (``pack_bf16`` is its
 2-byte instantiation on phase 9's path, ``yi-6b-bf16``, as
 ``flash_attention_bf16`` is flash attention's); the bf16 SSD
 instantiation, on no path, has a record of its own with ``"path": null``
-and 0 launches.
+and 0 launches; ``flash_attention_granite`` and ``pack_granite`` are flash
+attention and the parameters' pack at phase 11's shapes, on its path
+``granite-moe-3b-a800m``.
 """
+import contextlib
 import dataclasses
 import gc
 import json
 import math
 import os
 import re
+import resource
 import subprocess
 import sys
 import tempfile
@@ -113,6 +131,7 @@ from repro_torch.checkpoint.reshard import host_tensor  # noqa: E402
 from repro_torch.cloud import (SPOT, AutoscalerConfig, CloudProvider,  # noqa: E402
                                CloudSimulator, NodeAutoscaler, NodePool)
 from repro_torch.configs import ATTN, get_config  # noqa: E402
+from repro_torch.core import elastic  # noqa: E402
 from repro_torch.core import (ElasticClusterController, ElasticTrainer,  # noqa: E402
                               JobSpec, JobStatus, PolicyConfig,
                               PreemptingPolicy, TrainJobConfig, VARIANTS,
@@ -218,6 +237,21 @@ FLEET_SMOKE = dict(n_jobs=20_000, seed=3, days=3.0, nodes=1_250, slots_per_node=
 FLEET_RESCALE_GAP = 1800.0
 BENCH_SIMCORE = os.path.join(ROOT, "BENCH_simcore.json")
 FLEET_EXACT = ("events", "stale_events", "completions", "rescales", "dropped_jobs")
+# phase 11: granite-moe-3b-a800m at its full published size, in float32 at
+# phase 4's batch and replicas and the operator's peak rate
+GRANITE = "granite-moe-3b-a800m"
+GRANITE_PARAMS = 3_299_182_080
+GRANITE_ACTIVE_PARAMS = 881_690_112
+MOE_JOB = dict(MAIN_JOB, peak_lr=OPERATOR_JOB["peak_lr"])
+CARD_MEMORY = 80e9
+# the archs whose CLI smoke runs in phase 6 besides phase 4's paths
+CLI_ARCHS = ("granite-moe-3b-a800m", "yi-9b", "starcoder2-7b", "minitron-4b",
+             "chameleon-34b")
+# flash attention's phase-3 cases: (record, path, dtype, one replica's shard
+# at R=4 as (B, S, H, KV, head_dim))
+FLASH_CASES = (("flash_attention", "yi-6b", torch.float32, (2, 2048, 32, 4, 128)),
+               ("flash_attention_bf16", BF16_PATH, torch.bfloat16, (2, 2048, 32, 4, 128)),
+               ("flash_attention_granite", GRANITE, torch.float32, (2, 2048, 24, 8, 64)))
 
 
 def check(cond, msg):
@@ -315,9 +349,8 @@ def build_kernels():
 # -- phase 3 -------------------------------------------------------------------
 
 def check_flash(gen):
-    B, S, H, KV, hd = 2, 2048, 32, 4, 128         # one replica's shard at R=4
     recs = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for name, path, dtype, (B, S, H, KV, hd) in FLASH_CASES:
         q = torch.randn((B, S, H, hd), device="cuda", generator=gen).to(dtype)
         k = torch.randn((B, S, KV, hd), device="cuda", generator=gen).to(dtype)
         v = torch.randn((B, S, KV, hd), device="cuda", generator=gen).to(dtype)
@@ -327,8 +360,8 @@ def check_flash(gen):
         lse_err = float((lse - ref.attention_lse_ref(q.float(), k.float())).abs().max())
         del exp
         check(math.isfinite(err) and err <= FLASH_TOL[dtype],
-              f"flash {dtype} max_abs_err {err} > {FLASH_TOL[dtype]}")
-        check(lse_err <= 1e-4, f"flash {dtype} lse err {lse_err}")
+              f"flash {name} max_abs_err {err} > {FLASH_TOL[dtype]}")
+        check(lse_err <= 1e-4, f"flash {name} lse err {lse_err}")
         ms = time_ms(lambda: flash_attention_fwd(q, k, v), 10)
         plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), 3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -336,14 +369,11 @@ def check_flash(gen):
             qt, kt, vt, is_causal=True, enable_gqa=True), 10)
         flops = 4 * hd * B * H * S * (S + 1) // 2      # causal pairs only
         b_ms, b_by = bound(nbytes(q, k, v, out, lse), flops, dtype)
-        f32 = dtype == torch.float32       # phase 4's type; bf16 is phase 9's
         recs.append(record(
-            "flash_attention" if f32 else "flash_attention_bf16", "flash_attention",
-            "yi-6b" if f32 else BF16_PATH, dtype,
-            "src/repro_torch/csrc/flash_attention.cu",
+            name, "flash_attention", path, dtype, "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:26", err, ms, plain, lib,
             b_ms, b_by, flops))
-        say("kernels", kernel="flash_attention", dtype=dtype_name(dtype),
+        say("kernels", kernel="flash_attention", path=path, dtype=dtype_name(dtype),
             shape=f"B{B}xS{S}xH{H}xKV{KV}xhd{hd}", max_abs_err=err,
             lse_err=lse_err, ms=ms, plain_ms=plain, library_ms=lib,
             bound_ms=b_ms, bound_by=b_by, of_bound=recs[-1]["of_bound"],
@@ -528,11 +558,16 @@ def check_ssd(gen):
 
 # -- phases 4 and 5 -----------------------------------------------------------------
 
-def run_elastic(cfg, job, steps=(2, 2, 2), log=True):
-    """steps at R=4, host-lane shrink to 2, steps, p2p expand to 4, steps."""
+def run_elastic(cfg, job, steps=(2, 2, 2), log="main", device="cuda", on_shrink=None):
+    """steps at R=4, host-lane shrink to 2, steps, p2p expand to 4, steps;
+    each step logged under the phase tag ``log`` (none if empty), with its
+    aux loss where it has one and, on the card, the peak memory so far (the
+    step after which it grows set it).  ``on_shrink(trainer)`` runs after
+    the shrink, outside its timed stages."""
     slots = local_slots(4)
-    t = ElasticTrainer(cfg, job, slots, device="cuda")
+    t = ElasticTrainer(cfg, job, slots, device=device)
     step_s, timings = [], []
+    on_card = torch.device(device).type == "cuda"
 
     def run(n):
         for _ in range(n):
@@ -540,11 +575,16 @@ def run_elastic(cfg, job, steps=(2, 2, 2), log=True):
             m = t.step()
             step_s.append(time.perf_counter() - t0)
             if log:
-                say("main", step=m["step"], replicas=m["replicas"],
-                    loss=m["loss"], grad_norm=m["grad_norm"],
-                    seconds=f"{step_s[-1]:.3f}")
+                aux = {"aux": m["aux"]} if m["aux"] else {}
+                peak = ({"peak_so_far_gb": f"{torch.cuda.max_memory_allocated() / 1e9:.2f}"}
+                        if on_card else {})
+                say(log, step=m["step"], replicas=m["replicas"],
+                    loss=m["loss"], **aux, grad_norm=m["grad_norm"],
+                    seconds=f"{step_s[-1]:.3f}", **peak)
     run(steps[0])
     timings.append(t.rescale(slots[2:], via_host=True))
+    if on_shrink is not None:
+        on_shrink(t)
     run(steps[1])
     timings.append(t.rescale(slots))
     run(steps[2])
@@ -577,7 +617,10 @@ def main_path(cfg):
           f"{kernel} launches {counts[kernel]} != {expected}")
     check(counts["pack"] > 0, "the host lane did not go through the pack kernel")
     profile_step(t)
+    # a process's first step runs torch's lazy imports, whose frames can hold
+    # the step's frame, and with it the trainer, in a cycle: collect it here
     del t
+    gc.collect()
     torch.cuda.empty_cache()
     return by_dtype, step_s, losses
 
@@ -585,7 +628,8 @@ def main_path(cfg):
 KERNEL_GROUPS = (("ssd", ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")),
                  ("flash_attention", ("flash_fwd_",)), ("pack", ("pack_kernel",)),
                  ("gemm", ("gemm", "xmma", "cutlass")), ("softmax", ("softmax",)),
-                 ("reduce", ("reduce",)), ("index", ("index", "scatter", "gather")),
+                 ("sort", ("sort", "topk", "radix", "bitonic")), ("reduce", ("reduce",)),
+                 ("index", ("index", "scatter", "gather")),
                  ("elementwise", ("elementwise",)))
 
 
@@ -644,6 +688,7 @@ def trajectory(arch):
     check(lerr <= TRAJ_LOSS_TOL, f"trajectory loss err {lerr}")
     check(perr <= TRAJ_PARAM_TOL, f"trajectory param err {perr}")
     del static, el
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -1443,6 +1488,107 @@ def cloud_phase(card, trace_dir):
     say("cloud", seconds=f"{time.perf_counter() - t_phase:.1f}")
 
 
+# -- phase 11 ------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def kept_restores():
+    """While open, each host snapshot that a trainer restores from
+    (``restore_from_host`` as ``core.elastic`` calls it) is appended to the
+    list this yields, so the restored state can be held against it after
+    the rescale's timed stages."""
+    kept = []
+    restore = elastic.restore_from_host
+
+    def keep(host_flat, template, device):
+        kept.append(host_flat)
+        return restore(host_flat, template, device)
+    elastic.restore_from_host = keep
+    try:
+        yield kept
+    finally:
+        elastic.restore_from_host = restore
+
+
+def host_memory():
+    """The machine's RAM in use (/proc/meminfo), this process's resident set
+    (/proc/self/statm) and its peak (``getrusage``), in GB."""
+    mem = {}
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            k, _, v = line.partition(":")
+            mem[k] = int(v.split()[0]) * 1024
+    with open("/proc/self/statm") as fh:
+        rss = int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024     # kB on Linux
+    return {"host_used_gb": f"{(mem['MemTotal'] - mem['MemAvailable']) / 1e9:.2f}",
+            "rss_gb": f"{rss / 1e9:.2f}", "rss_peak_gb": f"{peak / 1e9:.2f}"}
+
+
+def moe_phase(cfg, job=MOE_JOB, device="cuda"):
+    """Phase 11: an ``ElasticTrainer`` of ``cfg`` (granite-moe-3b-a800m at
+    its published size on the card) through phase 4's sequence, launch
+    counts zeroed before and read after.  Pinned host blocks cached by
+    earlier phases are released first: the snapshot needs about 52 GB of
+    them.  Returns (launch counts by dtype, step seconds)."""
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    release = getattr(torch._C, "_host_emptyCache", None)
+    if on_card:
+        torch.cuda.empty_cache()
+        if release is not None:
+            release()
+        torch.cuda.reset_peak_memory_stats()
+    say("moe", pinned_cache_released=on_card and release is not None, **host_memory())
+    ops.reset_launch_counts()
+
+    def held_to_snapshot(t):
+        params_flat, opt_flat = kept
+        t0 = time.perf_counter()
+        same_p, nb_p = state_matches(t.params, params_flat)
+        same_o, nb_o = state_matches(t.opt_state, opt_flat)
+        say("moe", restored_vs_snapshot_byte_exact=same_p and same_o, bytes=nb_p + nb_o,
+            compare_s=f"{time.perf_counter() - t0:.2f}", **host_memory())
+        check(same_p and same_o, "moe: the state restored on the host lane differs "
+              "from the snapshot it was restored from")
+        kept.clear()
+
+    with kept_restores() as kept:
+        t, step_s, timings = run_elastic(cfg, TrainJobConfig(**job), log="moe",
+                                         device=device, on_shrink=held_to_snapshot)
+    if on_card:
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    by_dtype = ops.launch_counts_by_dtype()
+    ms = t.metrics_log
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["aux"]) and m["aux"] > 0
+              for m in ms), f"moe: losses and aux {[(m['loss'], m['aux']) for m in ms]}")
+    check([r.path for r in timings] == ["host", "p2p"],
+          f"moe: paths {[r.path for r in timings]}")
+    for r in timings:
+        say("moe", rescale=r.path, **{k: f"{v:.4f}" for k, v in r.as_dict().items()})
+    expected = 2 * cfg.num_layers * sum(MAIN_REPLICAS) if on_card else 0
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    say("moe", arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
+        active_params=M.count_active_params(cfg), reduced="none",
+        startup_s=f"{t.startup_time:.2f}", step_s=[round(x, 4) for x in step_s],
+        tokens_per_s=f"{job['global_batch'] * job['seq_len'] / min(step_s):.0f}",
+        peak_gb=f"{peak / 1e9:.2f}", **host_memory(), launches=json.dumps(counts),
+        expected_flash_attention=expected)
+    check(counts["flash_attention"] == expected,
+          f"moe: flash launches {counts['flash_attention']} != {expected}")
+    check((counts["pack"] > 0) == on_card, f"moe: pack launches {counts['pack']}")
+    check(peak < CARD_MEMORY, f"moe: peak memory {peak / 1e9:.2f} GB")
+    if on_card:
+        profile_step(t)
+    del t
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    say("moe", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return by_dtype, step_s
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1460,15 +1606,22 @@ def main():
     paths = [get_config("yi-6b").with_(num_layers=4), get_config("mamba2-1.3b")]
     check(M.param_count(paths[1]) == MAMBA2_PARAMS,
           f"mamba2-1.3b has {M.param_count(paths[1])} parameters")
+    granite = get_config(GRANITE)
+    check((M.param_count(granite), M.count_active_params(granite))
+          == (GRANITE_PARAMS, GRANITE_ACTIVE_PARAMS),
+          f"{GRANITE} has {M.param_count(granite)} parameters, "
+          f"{M.count_active_params(granite)} active")
     records = [*check_flash(gen), check_rmsnorm(gen), *check_ssd(gen)]
     records += [check_pack(cfg, gen, "pack", cfg.name) for cfg in paths]
     records.append(check_pack(paths[0], gen, "pack_bf16", BF16_PATH, torch.bfloat16))
+    # the host-lane snapshot's float32 parameter group at granite's size
+    records.append(check_pack(granite, gen, "pack_granite", GRANITE, torch.float32))
     runs = {cfg.name: main_path(cfg) for cfg in paths}
     counts = {name: c for name, (c, _, _) in runs.items()}    # by path
-    for cfg in paths:
-        trajectory(cfg.name)
-    for cfg in paths:
-        train_cli_smoke(cfg.name)
+    for arch in [cfg.name for cfg in paths] + [GRANITE]:
+        trajectory(arch)
+    for arch in [cfg.name for cfg in paths] + list(CLI_ARCHS):
+        train_cli_smoke(arch)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as trace_dir:
         op_counts, op_traces = operator_phase(
@@ -1478,6 +1631,8 @@ def main():
         counts[BF16_PATH] = bf16_phase(paths[0], os.path.join(trace_dir, "bf16_ckpt"),
                                        runs[paths[0].name][2][0])
         cloud_phase(card, trace_dir)
+    counts[GRANITE], moe_steps = moe_phase(granite)
+    arch_vs_card(granite, moe_steps, card)
     for rec in records:     # launches on the path its shapes are from, and the operator's
         rec["launches"] = launches_of(rec, counts.get(rec["path"], {}))
         rec["operator_launches"] = launches_of(rec, op_counts)

@@ -44,12 +44,16 @@ def flatten_tree(tree) -> Dict[str, object]:
 
 def unflatten_tree(template, flat: Dict[str, object]):
     """Rebuild a nested dict shaped like ``template`` from a flat dict."""
-    def build(node, path):
-        if isinstance(node, dict):
-            return {k: build(v, f"{path}{_escape(str(k))}/")
-                    for k, v in node.items()}
-        return flat[path[:-1]]
-    return build(template, "")
+    return _build(template, flat, "")
+
+
+def _build(node, flat: Dict[str, object], path: str):
+    # a module-level function: a recursive closure would be a reference cycle
+    # holding ``flat``, and with it every leaf, until the garbage collector ran
+    if isinstance(node, dict):
+        return {k: _build(v, flat, f"{path}{_escape(str(k))}/")
+                for k, v in node.items()}
+    return flat[path[:-1]]
 
 
 def nest_flat(flat: Dict[str, object]) -> dict:

@@ -8,6 +8,15 @@ shard's gradient is accumulated in slot order (a fixed summation order), and
 the loss is sum(loss_sum) / sum(weight) over the global batch, as the
 reference's SPMD step computes it.
 
+A model with MoE layers adds the load-balance loss of the GLOBAL batch, as
+the reference's step (one ``loss_fn`` over the whole batch) does: it is
+``E * sum_e f_e * P_e`` with ``f_e`` and ``P_e`` means over every shard, not a
+sum of shard losses.  Its counts are not differentiable, so once every
+shard's sums are known the loss is linear in each shard's probabilities:
+the step runs every shard's forward, keeps the graphs, reduces the sums,
+and runs one backward.  Models without MoE layers backpropagate each shard
+as soon as its forward ends.
+
 A rescale reports the paper's four stages (Fig. 5):
 
     load_balance  re-split the global batch over the new slots (shard_bounds)
@@ -33,7 +42,7 @@ from repro_torch.checkpoint.reshard import (restore_from_host,
                                             snapshot_to_host,
                                             surviving_devices, tree_leaves,
                                             tree_map)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FF_MOE, ModelConfig
 from repro_torch.data import make_stream
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
@@ -95,6 +104,8 @@ class ElasticTrainer:
         self.metrics_log: List[dict] = []
         self.rescale_log: List[RescaleTimings] = []
         self._async_ckpt: Optional[AsyncCheckpointer] = None
+        self._has_moe = any(self.cfg.ff_at(i) == FF_MOE
+                            for i in range(self.cfg.num_layers))
 
         t0 = time.perf_counter()
         self._step_cache: Dict[tuple, dict] = {}
@@ -151,22 +162,36 @@ class ElasticTrainer:
                  for k, v in batch_np.items()}
         n_tokens = float((batch_np["labels"] >= 0).sum())
         denom = max(n_tokens, 1.0)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for lo, hi in self._bounds:
-            shard = {k: v[lo:hi] for k, v in batch.items()}
-            ls, _ = M.loss_terms(self.cfg, self.params, shard)
-            (ls / denom).backward()
-            loss_sum += ls.detach()
-        grads = tree_map(lambda p: p.grad, self.params)
+        shards = [{k: v[lo:hi] for k, v in batch.items()} for lo, hi in self._bounds]
+        if self._has_moe:
+            parts = [M.loss_terms(self.cfg, self.params, shard) for shard in shards]
+            # per layer: (psum, counts) summed over the shards, in slot order
+            moe_stats = [tuple(sum(t) for t in zip(*layer))
+                         for layer in zip(*(stats for _, _, stats in parts))]
+            aux = M.aux_loss(self.cfg, moe_stats, batch["tokens"].numel(), self.device)
+            loss_sum = sum(ls for ls, _, _ in parts)
+            (loss_sum / denom + aux).backward()
+            loss_sum, aux = loss_sum.detach(), aux.detach()
+            del parts, moe_stats
+        else:
+            loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+            for shard in shards:
+                ls, _, _ = M.loss_terms(self.cfg, self.params, shard)
+                (ls / denom).backward()
+                loss_sum += ls.detach()
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
         lr = warmup_cosine(self.step_idx, peak_lr=self.job.peak_lr,
                            warmup_steps=self.job.warmup_steps,
                            total_steps=self.job.total_steps)
-        om = adamw_update(self.adamw, grads, self.opt_state, self.params, lr)
+        # no local names the gradients: a first step's frame can outlive it
+        # in a reference cycle (lazy imports), and would hold them
+        om = adamw_update(self.adamw, tree_map(lambda p: p.grad, self.params),
+                          self.opt_state, self.params, lr)
         for p in tree_leaves(self.params):
             p.grad = None
         xent = loss_sum / denom
         self.step_idx += 1
-        metrics = {"loss": float(xent), "xent": float(xent), "aux": 0.0,
+        metrics = {"loss": float(xent + aux), "xent": float(xent), "aux": float(aux),
                    "tokens": n_tokens,
                    **{k: float(v) for k, v in om.items()},
                    "step": self.step_idx, "replicas": self.replicas}

@@ -276,12 +276,14 @@ class ArchScalingModel:
 
 def arch_model_from_config(cfg, seq_len: int = 4096,
                            global_batch: int = 256) -> ArchScalingModel:
-    # the port's configs are dense (no MoE), so every parameter is active
-    from repro_torch.models.params import param_count
-    n_total = param_count(cfg)
+    """FLOPs from the ACTIVE parameters (an MoE token runs only its top-k
+    experts); the all-reduce and checkpoint bytes from all of them."""
+    from repro_torch.configs.base import count_active_params, count_params
+    n_active = count_active_params(cfg)
+    n_total = count_params(cfg)
     tokens = seq_len * global_batch
     return ArchScalingModel(
         name=cfg.name,
-        flops_per_step=6.0 * n_total * tokens,
+        flops_per_step=6.0 * n_active * tokens,
         param_bytes=2.0 * n_total,
     )

@@ -5,18 +5,24 @@ Replicas are logical slots on the one device: ``--virtual-devices`` sets how
 many slots exist (0 = as many as ``--devices`` and ``--rescale-at`` need),
 ``--devices`` how many the job starts on (0 = all).
 
+``--arch`` takes every config the port builds (``configs.list_archs()``:
+the dense yi-6b, yi-9b, starcoder2-7b, minitron-4b and chameleon-34b, the
+granite-moe-3b-a800m MoE and mamba2-1.3b), each with ``--smoke``.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
       --steps 50 --global-batch 8 --seq-len 64
-  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
-      --steps 20 --devices 4 --rescale-at 10:2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \
+      --smoke --steps 20 --devices 4 --rescale-at 10:2 --device cpu
 """
 import argparse
+
+from repro_torch.configs.base import list_archs
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
     ap.add_argument("--steps", type=int, default=50)

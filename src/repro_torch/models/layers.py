@@ -5,7 +5,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import FF_SWIGLU
+from repro_torch.configs.base import FF_GELU, FF_RELU2, FF_SWIGLU
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -40,12 +40,23 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def gelu(u):
+    """``jax.nn.gelu``'s default, the tanh approximation, in float32 and cast
+    back to u's type (the exact erf form differs by up to 4.7e-4)."""
+    return F.gelu(u.float(), approximate="tanh").to(u.dtype)
+
+
 def apply_ffn(p: dict, x, kind: str):
-    if kind != FF_SWIGLU:
-        raise ValueError(f"ffn kind {kind!r} is not ported yet")
-    g = torch.matmul(x, p["w_gate"])
-    u = torch.matmul(x, p["w_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
+    if kind == FF_SWIGLU:
+        g = torch.matmul(x, p["w_gate"])
+        u = torch.matmul(x, p["w_up"])
+        h = F.silu(g.float()).to(x.dtype) * u
+    elif kind == FF_GELU:
+        h = gelu(torch.matmul(x, p["w_up"]))
+    elif kind == FF_RELU2:
+        h = torch.square(F.relu(torch.matmul(x, p["w_up"])))
+    else:
+        raise ValueError(kind)
     return torch.matmul(h, p["w_down"])
 
 

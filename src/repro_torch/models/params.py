@@ -1,5 +1,6 @@
 """Parameter specs and initialisation (counterpart of
-``repro.models.params`` for the dense GQA + SwiGLU and the Mamba-2 decoders).
+``repro.models.params`` for the decoders the port builds: GQA attention with
+or without ``qk_norm``, SwiGLU, GELU, squared-ReLU or MoE FFNs, and Mamba-2).
 
 Shapes and the ``/``-joined flat keys equal
 ``repro.checkpoint.reshard.flatten_tree(repro.models.params.init_params(cfg,
@@ -21,7 +22,8 @@ import torch
 from repro_torch.checkpoint.reshard import (host_tensor, nest_flat,
                                             snapshot_to_host,
                                             tree_path_keys, unflatten_tree)
-from repro_torch.configs.base import ATTN, FF_NONE, FF_SWIGLU, SSM, ModelConfig
+from repro_torch.configs.base import (ATTN, FF_GELU, FF_MOE, FF_NONE, FF_RELU2,
+                                      FF_SWIGLU, SSM, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models.ssm import _dims
 
@@ -36,12 +38,16 @@ class ParamSpec:
 def _attn_specs(cfg: ModelConfig) -> dict:
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
-    return {
+    s = {
         "wq": ParamSpec((d, h, hd)),
         "wk": ParamSpec((d, kv, hd)),
         "wv": ParamSpec((d, kv, hd)),
         "wo": ParamSpec((h, hd, d), fan_in=h * hd),
     }
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((hd,), "ones")
+        s["k_norm"] = ParamSpec((hd,), "ones")
+    return s
 
 
 def _ssm_specs(cfg: ModelConfig) -> dict:
@@ -61,15 +67,34 @@ def _ssm_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _ffn_specs(cfg: ModelConfig, kind: str) -> dict:
-    if kind != FF_SWIGLU:
-        raise ValueError(f"ffn kind {kind!r} is not ported yet")
-    d, f = cfg.d_model, cfg.d_ff
-    return {
-        "w_gate": ParamSpec((d, f)),
-        "w_up": ParamSpec((d, f)),
-        "w_down": ParamSpec((f, d), fan_in=f),
-    }
+def _ffn_specs(cfg: ModelConfig, kind: str, d_ff: int) -> dict:
+    d = cfg.d_model
+    if kind == FF_SWIGLU:
+        return {
+            "w_gate": ParamSpec((d, d_ff)),
+            "w_up": ParamSpec((d, d_ff)),
+            "w_down": ParamSpec((d_ff, d), fan_in=d_ff),
+        }
+    if kind in (FF_GELU, FF_RELU2):
+        return {
+            "w_up": ParamSpec((d, d_ff)),
+            "w_down": ParamSpec((d_ff, d), fan_in=d_ff),
+        }
+    raise ValueError(kind)
+
+
+def _moe_specs(cfg: ModelConfig) -> dict:
+    """Router (d, E) and experts stacked (E, d, f) / (E, f, d)."""
+    m, d = cfg.moe, cfg.d_model
+    e, f = m.num_experts, m.d_ff_expert
+    s = {"router": ParamSpec((d, e))}
+    if m.ff_kind == FF_SWIGLU:
+        s["w_gate"] = ParamSpec((e, d, f), fan_in=d)
+    s["w_up"] = ParamSpec((e, d, f), fan_in=d)
+    s["w_down"] = ParamSpec((e, f, d), fan_in=f)
+    if m.num_shared_experts:
+        s["shared"] = _ffn_specs(cfg, m.ff_kind, m.num_shared_experts * m.d_ff_expert)
+    return s
 
 
 def _layer_specs(cfg: ModelConfig, i: int) -> dict:
@@ -85,7 +110,7 @@ def _layer_specs(cfg: ModelConfig, i: int) -> dict:
     ff = cfg.ff_at(i)
     if ff != FF_NONE:
         s["ff_norm"] = ParamSpec((d,), "ones")
-        s["ff"] = _ffn_specs(cfg, ff)
+        s["ff"] = _moe_specs(cfg) if ff == FF_MOE else _ffn_specs(cfg, ff, cfg.d_ff)
     return s
 
 
@@ -96,11 +121,25 @@ def _stack(tree, n: int):
     return ParamSpec((n,) + tree.shape, tree.init, tree.fan_in or tree.shape[0])
 
 
-def param_specs(cfg: ModelConfig) -> dict:
-    _, n = cfg.scan_layers()
+def _refuse_unported(cfg: ModelConfig) -> None:
+    """Layouts whose family is not ported yet, each with its ROADMAP item."""
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-head latent attention waits for ROADMAP A.4(d)")
+    if cfg.scan_layers()[0]:
+        raise NotImplementedError(
+            f"{cfg.name}: prefix layers (first_dense) wait for ROADMAP A.4(d)")
     if cfg.layer_period() != 1:
         raise NotImplementedError(
-            f"{cfg.name}: hybrid layer layouts wait for their family's slice")
+            f"{cfg.name}: hybrid layer layouts wait for ROADMAP A.4(e)")
+    if cfg.enc_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models wait for ROADMAP A.4(f)")
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    _refuse_unported(cfg)
+    _, n = cfg.scan_layers()
     d = cfg.d_model
     s = {
         "embed": ParamSpec((cfg.padded_vocab, d), fan_in=d),

@@ -3,7 +3,10 @@
 float32 moments, an int32 ``count``, bias correction, and weight decay on
 EVERY leaf, norms included, as the reference does.  Unlike the reference's
 pure function, ``adamw_update`` updates params and moments IN PLACE: at full
-width a second copy of the 1.2e9-parameter state would not be free.
+width a second copy of the 1.2e9-parameter state would not be free.  It
+updates each leaf in pieces of ``CHUNK`` elements, so its temporaries stay
+small beside a 4 GB leaf (granite-moe-3b-a800m's stacked experts); every
+operation is elementwise, so the result is the same as in one piece.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ from typing import Dict, List
 import torch
 
 from repro_torch.checkpoint.reshard import tree_leaves, tree_map
+
+CHUNK = 1 << 26            # elements: 256 MB of float32 temporaries a piece
 
 
 @dataclass(frozen=True)
@@ -52,10 +57,18 @@ def adamw_update(cfg: AdamWConfig, grads, state, params, lr
     bc2 = 1.0 - torch.pow(f32(cfg.b2), count)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=count.device)
     for g, m, v, p in zip(g_leaves, m_leaves, v_leaves, p_leaves):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        p32 = p.float()
-        p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
+        g = g.reshape(-1)
+        m, v, p = m.view(-1), v.view(-1), p.view(-1)   # updated in place: views
+        for lo in range(0, g.numel(), CHUNK):
+            _update(cfg, g[lo:lo + CHUNK], m[lo:lo + CHUNK], v[lo:lo + CHUNK],
+                    p[lo:lo + CHUNK], scale, bc1, bc2, lr)
     return {"grad_norm": gnorm, "lr": lr}
+
+
+def _update(cfg: AdamWConfig, g, m, v, p, scale, bc1, bc2, lr):
+    g = g.float() * scale
+    m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+    step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    p32 = p.float()
+    p.copy_(p32 - lr * (step + cfg.weight_decay * p32))

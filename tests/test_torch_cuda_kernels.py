@@ -5,6 +5,8 @@ test, so every pytest worker collects the same tests.  Run them on the card
 with ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
 
 This file needs no JAX: the machine with the card has none."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 
 
 def _qkv(seed, B, S, H, KV, hd):
@@ -37,7 +41,9 @@ def _card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,KV,hd", [(2, 16, 4, 2, 16), (2, 32, 4, 2, 16),
-                                         (1, 100, 8, 2, 64), (2, 256, 8, 1, 128)])
+                                         (1, 100, 8, 2, 64), (2, 256, 8, 1, 128),
+                                         (2, 256, 24, 8, 64),      # granite-moe: group 3
+                                         (1, 128, 36, 4, 128)])    # starcoder2: group 9
 def test_flash_kernel_matches_plain_on_card(dtype, B, S, H, KV, hd):
     dev = _card()
     dt = getattr(torch, dtype)
@@ -347,3 +353,36 @@ def test_trainer_save_disk_async_then_step_on_card(tmp_path):
     assert {k: flat[k].tobytes() for k in want} == want
     assert t.params["embed"].detach().cpu().numpy().tobytes() != want["params/embed"]
     t._async_ckpt.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["gather", "dense"])
+def test_moe_forward_on_card_matches_the_cpu(impl):
+    """granite-moe's MoE layer at smoke size (4 experts, top-2, capacity
+    factor 0.25 so tokens drop) on the card against the same layer on the
+    CPU: output and aux within 2e-5, gradients of x and every expert leaf
+    within 1e-4; the gather's sort, dispatch and combine run on the card."""
+    dev = _card()
+    cfg = smoke_config("granite-moe-3b-a800m").with_(dtype="float32")
+    cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=0.25))
+    D, E, F = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert
+    rng = np.random.default_rng(0)
+    f32 = lambda fan, *shape: (rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32)
+    flat = {"router": f32(D, D, E), "w_gate": f32(D, E, D, F), "w_up": f32(D, E, D, F),
+            "w_down": f32(F, E, F, D)}
+    x, r = f32(1, 2, 64, D), f32(1, 2, 64, D)
+    out = {}
+    for where in ("cpu", dev):
+        p = M.from_numpy_flat(flat, device=where)
+        xt = torch.from_numpy(x).to(where).requires_grad_()
+        moe.set_moe_impl(impl)
+        try:
+            y, aux = moe.moe_forward(cfg, p, xt)
+        finally:
+            moe.set_moe_impl("gather")
+        (torch.sum(y * torch.from_numpy(r).to(where)) + aux).backward()
+        out[str(where)] = [y.detach(), aux.detach(), xt.grad] + [p[k].grad for k in sorted(p)]
+    cpu, card = out["cpu"], out[str(dev)]
+    for i, (a, b) in enumerate(zip(cpu, card)):
+        tol = 2e-5 if i < 2 else 1e-4
+        torch.testing.assert_close(b.cpu(), a, atol=tol, rtol=tol)

@@ -24,6 +24,7 @@ from repro_torch.core.elastic import (ElasticTrainer, Slot,  # noqa: E402
                                       TrainJobConfig, local_slots)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -31,7 +32,8 @@ import chip_smoke  # noqa: E402
 
 TOL = 5e-5
 JOB = dict(global_batch=8, seq_len=32, total_steps=12, seed=3)
-ARCHS = ["yi-6b", "mamba2-1.3b"]
+ARCHS = ["yi-6b", "mamba2-1.3b", "granite-moe-3b-a800m"]
+MOE = "granite-moe-3b-a800m"
 
 
 def _trainer(n_slots=4, arch="yi-6b"):
@@ -70,6 +72,63 @@ def test_jax_checkpoint_restores_into_port_and_trajectories_agree(tmp_path, arch
     jopt = jflatten(jax.device_get(jt2.opt_state))
     for k, t in flatten_tree(pt.opt_state).items():
         assert np.asarray(jopt[k]).tobytes() == t.numpy().tobytes(), k
+
+
+def _jax_and_port_from_step0(tmp_path, arch, slots):
+    """A single-device JAX trainer and a port trainer on ``slots``, both at
+    the JAX trainer's step-0 parameters (through its disk checkpoint)."""
+    jt = JTrainer(jsmoke_config(arch), JJob(**JOB), jax.devices()[:1])
+    jt.save_disk(JDiskStore(str(tmp_path)), "job")
+    pt = ElasticTrainer(smoke_config(arch), TrainJobConfig(**JOB), slots, device="cpu")
+    assert pt.restore_disk(DiskCheckpointStore(str(tmp_path)), "job") == 0
+    return jt, pt
+
+
+def test_moe_loss_and_aux_are_the_global_batchs_at_every_replica_count(tmp_path):
+    """The load-balance loss is a product of two means over the GLOBAL batch:
+    the port's first step from the JAX step-0 parameters gives the JAX
+    trainer's loss, aux and parameters at R = 1, 2 and 4.  The mean of the
+    shards' own aux losses, which the global one replaces, differs."""
+    runs = {}
+    for r in (1, 2, 4):
+        jt, pt = _jax_and_port_from_step0(tmp_path / str(r), MOE, local_slots(r))
+        runs[r] = pt.step(), pt.params
+    step0 = jflatten(jax.device_get(jt.params))
+    jm = jt.step()
+    want = jflatten(jax.device_get(jt.params))
+    for r, (pm, params) in runs.items():
+        assert pm["replicas"] == r and pm["aux"] > 0
+        for k in ("loss", "aux", "xent", "grad_norm"):
+            assert abs(pm[k] - jm[k]) < TOL, (r, k, pm[k], jm[k])
+            assert abs(pm[k] - runs[1][0][k]) < 1e-6, (r, k)
+        assert abs(pm["loss"] - pm["xent"] - pm["aux"]) < 1e-6
+        assert _max_param_err(params, want) < TOL
+
+    params0 = M.from_numpy_flat({k: np.asarray(v) for k, v in step0.items()}, device="cpu")
+    batch = pt.stream.global_batch_at(0)
+    shard_aux = [float(M.loss_fn(pt.cfg, params0, {k: torch.from_numpy(v[lo:hi]).long()
+                                                   for k, v in batch.items()})[1]["aux"].detach())
+                 for lo, hi in pt._shard_bounds(4)]
+    assert abs(sum(shard_aux) / 4 - jm["aux"]) > 10 * TOL, (shard_aux, jm["aux"])
+
+
+def test_moe_trainer_follows_the_jax_trainer_through_both_lanes(tmp_path):
+    """granite-moe at smoke size from the JAX step-0 parameters: R=4, a
+    host-lane shrink to 2, a p2p expand to 4; every loss and aux within
+    ``TOL`` of the single-device JAX trainer's, and the parameters at the
+    end."""
+    slots = local_slots(4)
+    jt, pt = _jax_and_port_from_step0(tmp_path, MOE, slots)
+    for i in range(6):
+        if i == 2:
+            assert pt.rescale(slots[2:], via_host=True).path == "host"
+        if i == 4:
+            assert pt.rescale(slots).path == "p2p"
+        jm, pm = jt.step(), pt.step()
+        for k in ("loss", "aux"):
+            assert abs(jm[k] - pm[k]) < TOL, (i, k, jm[k], pm[k])
+    assert [m["replicas"] for m in pt.metrics_log] == [4, 4, 2, 2, 4, 4]
+    assert _max_param_err(pt.params, jflatten(jax.device_get(jt.params))) < TOL
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -318,6 +377,19 @@ def test_chip_smoke_bf16_phase_runs_at_smoke_size_on_the_cpu(tmp_path, capsys):
     assert out.count("[bf16] step=") == 5
 
 
+def test_chip_smoke_moe_phase_runs_at_smoke_size_on_the_cpu(capsys):
+    """``chip_smoke.py``'s phase 11 with the granite-moe smoke config on the
+    CPU: finite losses, aux above 0, the host lane's restored state byte for
+    byte its snapshot, no kernel launches."""
+    counts, step_s = chip_smoke.moe_phase(smoke_config(MOE), job=JOB, device="cpu")
+    assert counts == {"flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
+    assert len(step_s) == 6
+    out = capsys.readouterr().out
+    assert "restored_vs_snapshot_byte_exact=True" in out, out
+    assert out.count("[moe] step=") == 6 and out.count(" aux=") == 6
+    assert "rescale=host" in out and "rescale=p2p" in out
+
+
 def test_chip_smoke_kernel_records_read_their_launch_count():
     """A kernels-line record reads its kernel's count for its dtype, or all
     of its kernel's counts where it has no dtype (a whole snapshot's packs)."""
@@ -350,7 +422,8 @@ def test_train_cli_checkpoints_and_restarts_in_bfloat16(tmp_path, capsys):
     assert all(np.isfinite([m["loss"] for m in t.metrics_log + t2.metrics_log]))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["yi-9b", "starcoder2-7b", "minitron-4b",
+                                          "chameleon-34b"])
 def test_train_cli_rescales_checkpoints_and_restarts(tmp_path, capsys, arch):
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--devices", "4",
             "--global-batch", "8", "--seq-len", "32", "--log-every", "1",

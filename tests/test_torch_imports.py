@@ -74,15 +74,26 @@ WORKLOAD_MODULES = {
 }
 
 
+# the model families: the MoE layer and the configs of the dense, MoE and
+# vlm-backbone archs
+MODEL_MODULES = {
+    "repro_torch.models.moe", "repro_torch.models.transformer",
+    "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.configs.yi_9b",
+    "repro_torch.configs.starcoder2_7b", "repro_torch.configs.minitron_4b",
+    "repro_torch.configs.chameleon_34b",
+}
+
+
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 65, proc.stdout
+    assert n >= 71, proc.stdout
     names = set(proc.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
     assert OPERATOR_MODULES <= names, sorted(OPERATOR_MODULES - names)
     assert SIMULATOR_MODULES <= names, sorted(SIMULATOR_MODULES - names)
     assert CLOUD_MODULES <= names, sorted(CLOUD_MODULES - names)
     assert WORKLOAD_MODULES <= names, sorted(WORKLOAD_MODULES - names)
+    assert MODEL_MODULES <= names, sorted(MODEL_MODULES - names)

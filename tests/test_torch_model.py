@@ -1,11 +1,15 @@
-"""The PyTorch port's dense yi-6b and Mamba-2 mamba2-1.3b models against the
-JAX package on the CPU: configs, data stream, parameter keys and shapes, the
-init distributions, loss and every gradient.
+"""The PyTorch port's models against the JAX package on the CPU: the dense
+yi-6b, yi-9b, starcoder2-7b (GELU), minitron-4b (squared ReLU) and
+chameleon-34b (qk_norm) decoders, the granite-moe-3b-a800m MoE and Mamba-2
+mamba2-1.3b: configs, data stream, parameter keys and shapes, parameter
+counts, the init distributions, loss (aux included) and every gradient; and
+the refusal of the layouts whose family is not ported yet.
 
 The JAX smoke parameters are carried across with ``from_numpy_flat``;
 tolerances are the reference's (loss 2e-5, gradients 1e-4)."""
 import dataclasses
 import math
+import re
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.checkpoint.reshard import flatten_tree as jflatten  # noqa: E402
+from repro.configs import count_active_params as jcount_active  # noqa: E402
 from repro.configs import count_params as jcount_params  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
@@ -22,17 +27,36 @@ from repro.data import make_stream as jmake_stream  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.checkpoint.reshard import flatten_tree  # noqa: E402
-from repro_torch.configs import get_config, smoke_config  # noqa: E402
+from repro_torch.configs import (MLAConfig, ModelConfig, MoEConfig,  # noqa: E402
+                                 SSMConfig, get_config, list_archs,
+                                 smoke_config)
 from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
-ARCHS = ["yi-6b", "mamba2-1.3b"]
+ARCHS = ["yi-6b", "mamba2-1.3b", "granite-moe-3b-a800m", "yi-9b", "starcoder2-7b",
+         "minitron-4b", "chameleon-34b"]
 FIELDS = ("name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
           "d_ff", "vocab_size", "resolved_head_dim", "padded_vocab", "rope_theta",
           "norm_eps", "ff_kind", "dtype", "vocab_pad_to", "default_mixer",
           "attn_every", "attn_offset", "tie_embeddings", "supports_long_context",
-          "expected_params", "source")
+          "expected_params", "source", "qk_norm", "frontend", "enc_layers")
+# full published sizes: (parameters, active parameters), the JAX package's
+# count_params and count_active_params
+FULL_SIZE = {"granite-moe-3b-a800m": (3_299_182_080, 881_690_112),
+             "yi-9b": (8_829_407_232, 8_829_407_232),
+             "starcoder2-7b": (7_399_051_776, 7_399_051_776),
+             "minitron-4b": (4_190_309_376, 4_190_309_376),
+             "chameleon-34b": (34_293_436_416, 34_293_436_416)}
+
+
+def _port_config(jcfg):
+    """The port's ModelConfig with every field of a JAX package config."""
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    for name, cls in (("moe", MoEConfig), ("mla", MLAConfig), ("ssm", SSMConfig)):
+        if kw[name] is not None:
+            kw[name] = cls(**dataclasses.asdict(kw[name]))
+    return ModelConfig(**kw)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -53,9 +77,11 @@ def test_configs_match_reference(factory, arch):
     ref = (jget_config if factory == "get" else jsmoke_config)(arch)
     for f in FIELDS:
         assert getattr(ours, f) == getattr(ref, f), f
-    assert (ours.ssm is None) == (ref.ssm is None)
-    if ref.ssm is not None:
-        assert dataclasses.asdict(ours.ssm) == dataclasses.asdict(ref.ssm)
+    for sub in ("ssm", "moe", "mla"):
+        assert (getattr(ours, sub) is None) == (getattr(ref, sub) is None), sub
+        if getattr(ref, sub) is not None:
+            assert dataclasses.asdict(getattr(ours, sub)) == \
+                dataclasses.asdict(getattr(ref, sub)), sub
     assert [ours.mixer_at(i) for i in range(ours.num_layers)] == \
         [ref.mixer_at(i) for i in range(ref.num_layers)]
     assert [ours.ff_at(i) for i in range(ours.num_layers)] == \
@@ -71,6 +97,34 @@ def test_mamba2_full_size_param_count_equals_reference():
     assert M.param_count(cfg) == 1_344_052_224 == jcount_params(jget_config("mamba2-1.3b"))
     assert "lm_head" not in M.param_shapes(cfg)
     assert M.param_shapes(cfg)["decoder/blocks/sub0/mixer/in_proj"] == (48, 2048, 8512)
+
+
+def test_every_ported_arch_is_registered():
+    assert list_archs() == sorted(ARCHS)
+
+
+@pytest.mark.parametrize("arch", sorted(FULL_SIZE))
+def test_full_size_param_counts_equal_reference(arch):
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    total, active = FULL_SIZE[arch]
+    assert M.param_count(cfg) == M.count_params(cfg) == jcount_params(jcfg) == total
+    assert M.count_active_params(cfg) == jcount_active(jcfg) == active
+    assert M.param_shapes(cfg) == {k: v.shape for k, v in jflatten(
+        jax.eval_shape(lambda: JM.init_params(jcfg, jax.random.PRNGKey(0)))).items()}
+
+
+@pytest.mark.parametrize("arch,mla,item", [
+    ("jamba-v0.1-52b", True, "A.4(e)"),              # hybrid: attention every 8th layer
+    ("deepseek-v2-236b", True, "A.4(d)"),            # multi-head latent attention
+    ("deepseek-v2-236b", False, "A.4(d)"),           # its first_dense prefix layer
+    ("seamless-m4t-large-v2", True, "A.4(f)")])      # encoder-decoder
+def test_unported_layouts_are_refused_with_their_roadmap_item(arch, mla, item):
+    cfg = _port_config(jget_config(arch))
+    cfg = cfg if mla else cfg.with_(mla=None)
+    with pytest.raises(NotImplementedError, match=re.escape(item)):
+        M.param_specs(cfg)
+    with pytest.raises(NotImplementedError):
+        M.init_params(cfg, 0, device="cpu")
 
 
 def test_full_width_depth4_param_count():
@@ -177,6 +231,8 @@ def test_loss_and_every_gradient_match_jax(smoke):
     loss, m = M.loss_fn(cfg, params, tbatch)
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(float(m["aux"].detach()), float(jm["aux"]), atol=2e-5, rtol=2e-5)
+    assert (float(m["aux"].detach()) > 0) == (cfg.moe is not None)
     assert float(m["tokens"]) == float(jm["tokens"]) == 4 * 32 - 5
     jg = {k: np.asarray(v) for k, v in jflatten(jgrads).items()}
     tg = flatten_tree(params)

@@ -267,6 +267,20 @@ def test_param_count_matches_jax_count_params(arch):
     assert param_count(pget_config(arch)) == count_params(jget_config(arch))
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "yi-6b", "mamba2-1.3b"])
+def test_arch_model_counts_flops_from_active_params_as_the_reference(arch):
+    """FLOPs from the active parameters (granite-moe: 881,690,112 of
+    3,299,182,080), bytes from all of them, as the JAX package's
+    ``arch_model_from_config``; only the card's constants differ."""
+    ours = ppm.arch_model_from_config(pget_config(arch), seq_len=2048, global_batch=8)
+    ref = jpm.arch_model_from_config(jget_config(arch), seq_len=2048, global_batch=8)
+    assert ours.flops_per_step == ref.flops_per_step
+    assert ours.param_bytes == ref.param_bytes and ours.data_bytes == ref.data_bytes
+    if arch == "granite-moe-3b-a800m":
+        assert ours.flops_per_step == 6.0 * 881_690_112 * 2048 * 8
+        assert ours.param_bytes == 2.0 * 3_299_182_080
+
+
 def test_h100_arch_model_decreases_with_groups_and_is_sublinear():
     """The reference's monotonicity test on the H100 model: step time falls
     with replica groups, and the NVLink all-reduce keeps the speedup
