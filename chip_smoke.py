@@ -20,7 +20,8 @@ without a CUDA device the script exits non-zero before printing a result:
    (CUDA events), the least time the card could take (bound), its share
    (of_bound = bound / kernel) and the achieved TFLOP/s; for the SSD scan,
    the device ms of each of its three launches (torch.profiler); flash
-   attention and the parameters' pack also at phase 11's granite-moe shapes;
+   attention and the parameters' pack also at phase 11's granite-moe shapes,
+   flash attention and the SSD scan also at phase 12's prefill shapes;
 4. the main paths, each an ElasticTrainer at global batch 8 x 2048 on 4
    logical replicas, stepped, shrunk to 2 on the host lane, stepped,
    expanded to 4 on the p2p lane, stepped; launch counts are zeroed just
@@ -89,7 +90,20 @@ without a CUDA device the script exits non-zero before printing a result:
     launches on the host lane, the restored state byte for byte the snapshot
     it was restored from, peak memory under 80 GB; step s, tokens/s, rescale
     stages, peak memory and host RAM, one more step under ``torch.profiler``,
-    and the H100 arch model (active parameters) beside the measured step.
+    and the H100 arch model (active parameters) beside the measured step;
+12. serving, ``[serve]`` lines: yi-6b at its full 32 layers, then
+    mamba2-1.3b at its full 48, in float32, each prefilling a batch of 8
+    prompts of 2048 tokens and decoding 64 tokens (63 steps) through the
+    port's ``prefill`` / ``pad_cache`` / ``decode_step``, launch counts
+    zeroed before the prefill and before the decode loop and read after
+    each (flash 32 or SSD 48 a prefill, none in decode): prefill s and
+    tokens/s against the reference's FLOP count (``utils.flops.fwd_flops``)
+    and the fp32 peak, decode ms a step and tokens/s against the step's
+    byte bound, the device idle share of a prefill and of a decode step
+    (``torch.profiler``), peak memory, and the decode logits held to the
+    training forward's at the generated positions (teacher forcing); then
+    ``python -m repro_torch.launch.serve --smoke`` on the card for yi-6b,
+    granite-moe-3b-a800m and mamba2-1.3b.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
@@ -102,7 +116,9 @@ which runs on every path, has one record per path (``pack_bf16`` is its
 instantiation, on no path, has a record of its own with ``"path": null``
 and 0 launches; ``flash_attention_granite`` and ``pack_granite`` are flash
 attention and the parameters' pack at phase 11's shapes, on its path
-``granite-moe-3b-a800m``.
+``granite-moe-3b-a800m``; ``flash_attention_serve`` and ``ssd_serve`` are
+the two kernels at phase 12's prefill shapes (batch 8), on its paths
+``yi-6b-serve`` and ``mamba2-1.3b-serve``.
 """
 import contextlib
 import dataclasses
@@ -154,6 +170,7 @@ from repro_torch.obs.critical_path import reconcile  # noqa: E402
 from repro_torch.obs.spans import render_chains  # noqa: E402
 from repro_torch.obs.timeline import render_last_run  # noqa: E402
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
+from repro_torch.utils.flops import decode_flops, fwd_flops  # noqa: E402
 from repro_torch.workloads import (LOADERS, REPLAY_VARIANTS,  # noqa: E402
                                    ReplayConfig, characterize, fixture_path,
                                    google_fleet_trace, replay_cloud,
@@ -247,11 +264,32 @@ CARD_MEMORY = 80e9
 # the archs whose CLI smoke runs in phase 6 besides phase 4's paths
 CLI_ARCHS = ("granite-moe-3b-a800m", "yi-9b", "starcoder2-7b", "minitron-4b",
              "chameleon-34b")
+# phase 12: serving at full published size in float32 (the reference's
+# serve CLI forces it): a batch of 8 prompts of 2048 tokens, 64 generated
+# tokens (63 decode steps); the decode logits are held to the training
+# forward's at the generated positions within the reference's 2e-4
+# (tests/test_models.py), scaled by max(1, max |logit|)
+SERVE = dict(batch=8, prompt=2048, gen=64, seed=0)
+SERVE_ARCHS = ("yi-6b", "mamba2-1.3b")
+SERVE_TF_TOL = 2e-4
+SERVE_CLI_ARCHS = ("yi-6b", GRANITE, "mamba2-1.3b")
+
+
+def serve_path(arch):
+    return f"{arch}-serve"
+
+
 # flash attention's phase-3 cases: (record, path, dtype, one replica's shard
-# at R=4 as (B, S, H, KV, head_dim))
+# at R=4, or phase 12's prefill batch, as (B, S, H, KV, head_dim))
 FLASH_CASES = (("flash_attention", "yi-6b", torch.float32, (2, 2048, 32, 4, 128)),
                ("flash_attention_bf16", BF16_PATH, torch.bfloat16, (2, 2048, 32, 4, 128)),
-               ("flash_attention_granite", GRANITE, torch.float32, (2, 2048, 24, 8, 64)))
+               ("flash_attention_granite", GRANITE, torch.float32, (2, 2048, 24, 8, 64)),
+               ("flash_attention_serve", serve_path("yi-6b"), torch.float32,
+                (8, 2048, 32, 4, 128)))
+# the SSD scan's phase-3 cases: (record, path, dtype, batch): one replica's
+# shard at R=4 (L2048 H64 P64 G1 N128, chunk 128), and phase 12's prefill
+SSD_CASES = (("ssd", "mamba2-1.3b", torch.float32, 2), ("ssd_bf16", None, torch.bfloat16, 2),
+             ("ssd_serve", serve_path("mamba2-1.3b"), torch.float32, 8))
 
 
 def check(cond, msg):
@@ -505,30 +543,29 @@ def _ssd_err(out, exp, tol):
 
 
 def check_ssd(gen):
-    B, L, H, P, G, N, Q = 2, 2048, 64, 64, 1, 128, 128   # one replica's shard at R=4
+    L, H, P, G, N, Q = 2048, 64, 64, 1, 128, 128
     recs = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for name, path, dtype, B in SSD_CASES:
         args = _ssd_inputs(gen, B, L, H, P, G, N, dtype)
         y = ssd_scan_fwd(*args, chunk=Q)
         err, frac = _ssd_err(y, ref.ssd_chunked_ref(*args, chunk=Q), SSD_TOL[dtype])
         check(frac <= 1.0, f"ssd {dtype} max_abs_err {err}: {frac} of the "
               f"allowance atol=rtol={SSD_TOL[dtype]}")
         ms = time_ms(lambda: ssd_scan_fwd(*args, chunk=Q), 10)
-        phases = {re.search(r"ssd_\w+_kernel", name).group(0): t for name, t in
+        phases = {re.search(r"ssd_\w+_kernel", kname).group(0): t for kname, t in
                   device_ms_by_kernel(lambda: ssd_scan_fwd(*args, chunk=Q)).items()}
         check(len(phases) == 3, f"ssd launched {sorted(phases)}, not three phases")
-        say("kernels", kernel="ssd", dtype=dtype_name(dtype), phases_device_ms=json.dumps(
-            {k: round(v, 4) for k, v in phases.items()}).replace(" ", ""))
+        say("kernels", kernel="ssd", path=path, dtype=dtype_name(dtype),
+            phases_device_ms=json.dumps({k: round(v, 4) for k, v in phases.items()}
+                                        ).replace(" ", ""))
         plain = time_ms(lambda: ref.ssd_chunked_ref(*args, chunk=Q), 3, warmup=1)
         pairs = Q * (Q + 1) // 2                         # causal pairs only
         flops = B * H * (L // Q) * (2 * pairs * (N + P) + 4 * Q * N * P)
         b_ms, b_by = bound(nbytes(*args, y), flops, dtype)
-        f32 = dtype == torch.float32                     # the main path's type
         recs.append(record(
-            "ssd" if f32 else "ssd_bf16", "ssd", "mamba2-1.3b" if f32 else None, dtype,
-            "src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:24",
-            err, ms, plain, None, b_ms, b_by, flops))
-        say("kernels", kernel="ssd", dtype=dtype_name(dtype),
+            name, "ssd", path, dtype, "src/repro_torch/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan.py:24", err, ms, plain, None, b_ms, b_by, flops))
+        say("kernels", kernel="ssd", path=path, dtype=dtype_name(dtype),
             shape=f"B{B}xL{L}xH{H}xP{P}xG{G}xN{N}xQ{Q}", max_abs_err=err,
             atol_rtol=SSD_TOL[dtype], of_allowance=frac, ms=ms, plain_ms=plain,
             library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=flops,
@@ -539,7 +576,7 @@ def check_ssd(gen):
     # dt*A sums to a few units over a chunk and the state carried from
     # earlier chunks makes up about half of y (by norm, past the first chunk)
     for dtype in (torch.float32, torch.bfloat16):
-        args = _ssd_inputs(gen, B, L, H, P, G, N, dtype, dt_shift=-6.0)
+        args = _ssd_inputs(gen, 2, L, H, P, G, N, dtype, dt_shift=-6.0)
         err, frac = _ssd_err(ssd_scan_fwd(*args, chunk=Q),
                              ref.ssd_chunked_ref(*args, chunk=Q), SSD_TOL[dtype])
         check(frac <= 1.0, f"ssd {dtype} long memory: max_abs_err {err}")
@@ -641,31 +678,42 @@ def kernel_group(name):
     return "other"
 
 
+def device_profile(fn):
+    """``fn()`` once under torch.profiler, device activity only: (wall ms
+    to its end, {kernel: (launches, device ms)}, device busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = kernel_times(prof)
+    return wall_ms, by_name, sum(ms for _, ms in by_name.values())
+
+
+def kernel_groups(by_name):
+    """{kernel group: device ms}, largest first."""
+    groups = {}
+    for name, (_, ms) in by_name.items():
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
 def profile_step(t, top=8):
     """One more steady step at R=4 under torch.profiler: device busy share,
     device time by kernel group and the kernels that take the most (after
     the launch counts were read, so it does not add to them).  Only device
     activity is traced."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        t.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
     t1 = time.perf_counter()
-    by_name = kernel_times(prof)
-    busy_ms = sum(ms for _, ms in by_name.values())
-    groups = {}
-    for name, (_, ms) in by_name.items():
-        g = kernel_group(name)
-        groups[g] = groups.get(g, 0.0) + ms
+    wall_ms, by_name, busy_ms = device_profile(t.step)
     check(busy_ms > 0, "the profiler saw no device time")
     say("profile", arch=t.cfg.name, replicas=t.replicas, wall_ms=f"{wall_ms:.1f}",
         device_ms=f"{busy_ms:.1f}", idle_share=f"{1 - busy_ms / wall_ms:.3f}",
         kernels=sum(n for n, _ in by_name.values()),
-        parse_s=f"{time.perf_counter() - t1:.1f}",
-        **{f"{g}_ms": f"{v:.1f}" for g, v in sorted(groups.items(),
-                                                    key=lambda kv: -kv[1])})
+        parse_s=f"{time.perf_counter() - t1 - wall_ms / 1e3:.1f}",
+        **{f"{g}_ms": f"{v:.1f}" for g, v in kernel_groups(by_name).items()})
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         say("profile", ms=f"{ms:.2f}", calls=n, kernel=name[:90].replace(" ", "_"))
 
@@ -1589,6 +1637,177 @@ def moe_phase(cfg, job=MOE_JOB, device="cuda"):
     return by_dtype, step_s
 
 
+# -- phase 12 ------------------------------------------------------------------------
+
+def decode_step_bytes(cfg, params, cache, batch, ctx):
+    """The least bytes a decode step with ``ctx`` tokens in the cache moves:
+    every weight read once (an untied embedding table only for the rows it
+    gathers), the keys and values of ``ctx + 1`` positions a layer read and
+    the new position's written, or the SSM conv window and state read and
+    written."""
+    w = nbytes(*flatten_tree(params).values())
+    if not cfg.tie_embeddings:
+        e = params["embed"]
+        w -= (e.shape[0] - batch) * e.shape[1] * e.element_size()
+    c = 0
+    for key, t in flatten_tree(cache).items():
+        if "/kv/" in key:               # (layers, B, window, KV, hd)
+            per_pos = nbytes(t) // t.shape[2]
+            c += per_pos * (ctx + 2)
+        else:
+            c += 2 * nbytes(t)
+    return w + c
+
+
+def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
+                gen=SERVE["gen"], device="cuda"):
+    """Phase 12 for one model: a prefill of ``batch`` random prompts of
+    ``prompt`` tokens, ``pad_cache`` to the serving window, ``gen - 1``
+    greedy decode steps, each timed to a device sync and with the launch
+    counts zeroed before and read after; then (on the card) one prefill and
+    one decode step under ``torch.profiler``; then teacher forcing: the
+    training forward over the prompt and the decoded inputs (padded at the
+    end to the SSD's chunk, which leaves earlier positions unchanged), its
+    logits at the generated positions held to the decode logits.  Returns
+    the launch counts by dtype of the prefill and the decode loop."""
+    t_model = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, SERVE["seed"], device=device)
+    g = torch.Generator(device=device).manual_seed(SERVE["seed"])
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g, device=device)
+    max_len = prompt + gen
+    kernel = "flash_attention" if cfg.mixer_at(0) == ATTN else "ssd"
+    none = {k: {} for k in ops.launch_counts()}
+
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cache, logits = M.prefill(cfg, params, {"tokens": prompts})
+    sync()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = ops.launch_counts_by_dtype()
+    t0 = time.perf_counter()
+    cache = M.pad_cache(cfg, cache, prompt, max_len)
+    sync()
+    pad_s = time.perf_counter() - t0
+    want = dict(none, **{kernel: {"float32": cfg.num_layers}}) if on_card else none
+    check(prefill_counts == want, f"serve {cfg.name}: prefill launches {prefill_counts} "
+          f"!= {want}")
+    check(logits.shape == (batch, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"serve {cfg.name}: prefill logits {tuple(logits.shape)}")
+
+    toks = logits.argmax(-1, keepdim=True)
+    out, step_logits = [toks], [logits]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for pos in range(prompt, max_len - 1):
+        logits, cache = M.decode_step(cfg, params, cache, toks, pos)
+        toks = logits.argmax(-1, keepdim=True)
+        out.append(toks)
+        step_logits.append(logits)
+    sync()
+    decode_s = time.perf_counter() - t0
+    decode_counts = ops.launch_counts_by_dtype()
+    check(decode_counts == none, f"serve {cfg.name}: decode launched {decode_counts}")
+    n = len(out) - 1
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    flops = fwd_flops(cfg, batch, prompt)
+    steps = range(prompt, max_len - 1)
+    step_bytes = sum(decode_step_bytes(cfg, params, cache, batch, pos) for pos in steps) / n
+    step_flops = sum(decode_flops(cfg, batch, pos) for pos in steps) / n
+    bound_ms = step_bytes / PEAK_BYTES * 1e3
+    step_ms = decode_s * 1e3 / n
+    say("serve", arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
+        reduced="none", batch=batch, prompt=prompt, generated=gen, decode_steps=n,
+        prefill_s=f"{prefill_s:.4f}", prefill_tokens_per_s=f"{batch * prompt / prefill_s:.0f}",
+        pad_cache_s=f"{pad_s:.4f}", decode_s=f"{decode_s:.4f}",
+        decode_ms_per_step=f"{step_ms:.4f}",
+        decode_tokens_per_s=f"{batch * n / decode_s:.0f}",
+        peak_gb=f"{peak / 1e9:.2f}", card=json.dumps(card))
+    say("serve", arch=cfg.name, prefill_ref_flops=f"{flops:.6e}",
+        ref_flops_count_masked_tiles=True,
+        prefill_tflops=f"{flops / prefill_s / 1e12:.2f}",
+        fp32_peak_share=f"{flops / prefill_s / H100_PEAK_FLOPS_FP32:.4f}",
+        decode_ref_flops_per_step=f"{step_flops:.6e}",
+        decode_bytes_per_step=f"{step_bytes:.6e}",
+        decode_bound_ms_per_step=f"{bound_ms:.4f}",
+        decode_of_bound=f"{bound_ms / step_ms:.4f}", card=json.dumps(card))
+    say("serve", arch=cfg.name, prefill_launches=json.dumps(prefill_counts).replace(" ", ""),
+        decode_launches=json.dumps(decode_counts).replace(" ", ""),
+        expected_prefill=json.dumps(want).replace(" ", ""))
+
+    if on_card:
+        for what, fn in (("prefill", lambda: M.prefill(cfg, params, {"tokens": prompts})),
+                         ("decode_step", lambda: M.decode_step(cfg, params, cache, toks,
+                                                               max_len - 1))):
+            wall_ms, by_name, busy_ms = device_profile(fn)
+            check(busy_ms > 0, f"serve {cfg.name}: the profiler saw no device time")
+            say("serve", arch=cfg.name, profile=what, wall_ms=f"{wall_ms:.3f}",
+                device_ms=f"{busy_ms:.3f}", idle_share=f"{1 - busy_ms / wall_ms:.4f}",
+                kernels=sum(k for k, _ in by_name.values()),
+                **{f"{grp}_ms": f"{v:.3f}" for grp, v in kernel_groups(by_name).items()})
+
+    seq = torch.cat([prompts, *out[:-1]], dim=1)         # the decode steps' inputs
+    pad = -seq.shape[1] % cfg.ssm.chunk if cfg.ssm is not None else 0
+    with torch.inference_mode():
+        hidden, _ = M.forward_hidden(cfg, params, {"tokens": torch.nn.functional.pad(
+            seq, (0, pad))})
+        forced = torch.matmul(hidden[:, prompt - 1:max_len - 1],
+                              M._head_weight(cfg, params))[..., :cfg.vocab_size].float()
+    del hidden
+    got = torch.stack(step_logits, dim=1)
+    scale = max(1.0, float(forced.abs().max()))
+    err = float((got - forced).abs().max()) / scale
+    say("serve", arch=cfg.name, teacher_forcing_positions=got.shape[1],
+        teacher_forcing_pad=pad, max_abs_err_over_scale=err, scale=scale, tol=SERVE_TF_TOL)
+    check(math.isfinite(err) and err <= SERVE_TF_TOL,
+          f"serve {cfg.name}: decode vs teacher forcing {err} > {SERVE_TF_TOL}")
+    del params, cache, got, forced, step_logits
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    say("serve", arch=cfg.name, seconds=f"{time.perf_counter() - t_model:.1f}")
+    return prefill_counts           # the decode loop's are checked to be none
+
+
+def serve_cli_smoke(arch):
+    """``python -m repro_torch.launch.serve --arch <arch> --smoke``, on the
+    card by default: it must exit 0 and print its ``[serve]`` lines."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+                           "--smoke"], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.splitlines()
+    say("serve", cli=arch, rc=proc.returncode, seconds=f"{time.perf_counter() - t0:.1f}")
+    for line in lines:
+        print(f"[serve] cli {arch} | {line}", flush=True)
+    check(proc.returncode == 0, f"serve CLI {arch}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    check(len(lines) >= 3 and lines[0].startswith("[serve] prefill")
+          and lines[1].startswith("[serve] decoded"), f"serve CLI {arch}: {lines}")
+
+
+def serve_phase(card):
+    """Phase 12: both models served at full size, then the CLI smoke.
+    Returns {serving path: launch counts by dtype}."""
+    t_phase = time.perf_counter()
+    counts = {serve_path(arch): serve_model(get_config(arch).with_(dtype="float32"), card)
+              for arch in SERVE_ARCHS}
+    for arch in SERVE_CLI_ARCHS:
+        serve_cli_smoke(arch)
+    say("serve", seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1633,6 +1852,7 @@ def main():
         cloud_phase(card, trace_dir)
     counts[GRANITE], moe_steps = moe_phase(granite)
     arch_vs_card(granite, moe_steps, card)
+    counts.update(serve_phase(card))
     for rec in records:     # launches on the path its shapes are from, and the operator's
         rec["launches"] = launches_of(rec, counts.get(rec["path"], {}))
         rec["operator_launches"] = launches_of(rec, op_counts)

@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of the elastic training job, its live operator, the
-policy simulator, the cloud layer and the trace workloads, beside the JAX
-package.
+policy simulator, the cloud layer, the trace workloads and serving, beside
+the JAX package.
 
 The port imports ``torch``, numpy and the standard library only; it never
 imports ``jax``, ``ml_dtypes`` or any module of ``repro``.  Framework-free code

@@ -11,9 +11,11 @@ import dataclasses
 
 from repro_torch.configs.base import (ATTN, FF_GELU, FF_MOE, FF_NONE,
                                       FF_RELU2, FF_SWIGLU, MLA, SSM, MLAConfig,
-                                      ModelConfig, MoEConfig, SSMConfig,
+                                      ModelConfig, MoEConfig, SHAPES,
+                                      ShapeConfig, SSMConfig,
                                       count_active_params, count_params,
-                                      get_config, list_archs, register)
+                                      get_config, list_archs, register,
+                                      shape_applicable)
 from repro_torch.configs import (chameleon_34b, granite_moe_3b_a800m,  # noqa: F401
                                  mamba2_1_3b, minitron_4b, starcoder2_7b,
                                  yi_6b, yi_9b)
@@ -42,5 +44,6 @@ def smoke_config(arch: str) -> ModelConfig:
 
 __all__ = ["ATTN", "MLA", "SSM", "FF_SWIGLU", "FF_GELU", "FF_RELU2", "FF_MOE",
            "FF_NONE", "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig",
-           "get_config", "smoke_config", "list_archs", "count_params",
-           "count_active_params", "register"]
+           "ShapeConfig", "SHAPES", "shape_applicable", "get_config",
+           "smoke_config", "list_archs", "count_params", "count_active_params",
+           "register"]

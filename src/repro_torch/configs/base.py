@@ -1,11 +1,11 @@
 """Model configuration for the port (copy of ``repro.configs.base``'s
 ``ModelConfig``, its sub-configs, the registry and the analytic parameter
-counts).
+counts), and of its input shapes (``ShapeConfig``, ``SHAPES``,
+``shape_applicable``).
 
 Every field of the reference's ``ModelConfig`` is here, so ``count_params``
 is a line-for-line copy; the model refuses the layouts whose family is not
-ported yet (``models/params.py``).  The input shapes (``ShapeConfig``,
-``SHAPES``) come with the dry-run's slice (ROADMAP A.6).
+ported yet (``models/params.py``).
 """
 from __future__ import annotations
 
@@ -96,7 +96,7 @@ class ModelConfig:
 
     # embedding/lm-head tables are padded up to a multiple of this so the
     # vocab dim shards evenly (MaxText-style); logits beyond vocab_size are
-    # masked in the loss.
+    # masked in the loss and sliced off in serving.
     vocab_pad_to: int = 256
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
@@ -163,6 +163,29 @@ class ModelConfig:
 
 def _lcm(a: int, b: int) -> int:
     return a * b // math.gcd(a, b)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell, with a reason when not."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch: O(L^2) attention at 524k skipped per assignment"
+    return True, ""
 
 
 _REGISTRY = {}

@@ -31,6 +31,15 @@ def _fn():
     return fn
 
 
+def chunk_len(L: int, chunk: int) -> int:
+    """The chunk length a sequence of ``L`` tokens is scanned in,
+    min(chunk, L); raises unless it divides L."""
+    Q = min(chunk, L)
+    if Q <= 0 or L % Q:
+        raise ValueError(f"sequence length {L} is not a multiple of chunk {Q}")
+    return Q
+
+
 def _check(x, dt, a_log, b, c, chunk: int) -> int:
     """Validates the inputs; returns the chunk length actually used."""
     if len({t.device for t in (x, dt, a_log, b, c)}) != 1:
@@ -50,10 +59,7 @@ def _check(x, dt, a_log, b, c, chunk: int) -> int:
     if b.shape[:2] != x.shape[:2] or H % b.shape[2]:
         raise ValueError(f"b/c {tuple(b.shape)}: batch and length of x, and a "
                          f"group count dividing {H} heads")
-    Q = min(chunk, L)
-    if Q <= 0 or L % Q:
-        raise ValueError(f"sequence length {L} is not a multiple of chunk {Q}")
-    return Q
+    return chunk_len(L, chunk)
 
 
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

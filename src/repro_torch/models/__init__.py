@@ -1,2 +1,2 @@
-"""Decoders of the port: dense GQA + SwiGLU (yi-6b) and Mamba-2 SSD
-(mamba2-1.3b)."""
+"""Decoders of the port: dense GQA (SwiGLU, GELU, squared ReLU, qk_norm),
+MoE (granite-moe) and Mamba-2 SSD, in training and serving."""

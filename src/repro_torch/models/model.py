@@ -1,23 +1,34 @@
-"""Public model API of the port (counterpart of ``repro.models.model``, the
-training forward of the decoders the port builds).
+"""Public model API of the port (counterpart of ``repro.models.model``) for
+the decoders the port builds:
+
+- ``loss_fn`` / ``forward_hidden``: the training forward;
+- ``make_cache``, ``prefill``, ``pad_cache`` and ``decode_step``: serving, a
+  batched prefill of a prompt, then one token for the whole batch at a time
+  against a fixed-size cache, written in place.
 
 Batch convention: ``tokens`` and ``labels`` are (B, S) integer tensors on the
-parameters' device, label -1 = masked.
+parameters' device, label -1 = masked.  Decode: tokens (B, 1), an int
+``pos`` and the cache, whose keys, shapes and dtypes are those of
+``repro.checkpoint.reshard.flatten_tree`` of the reference's cache.
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs.base import (ModelConfig, count_active_params,
-                                      count_params)
+from repro_torch.checkpoint.reshard import flatten_tree, nest_flat
+from repro_torch.configs.base import (ATTN, SSM, ModelConfig,
+                                      count_active_params, count_params)
 from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import init_kv_cache
 from repro_torch.models.layers import chunked_softmax_xent, rmsnorm
 from repro_torch.models.moe import balance_loss
-from repro_torch.models.params import (from_numpy_flat, init_params,
-                                       param_count, param_shapes, param_specs,
-                                       to_numpy_flat)
+from repro_torch.models.params import (_refuse_unported, from_numpy_flat,
+                                       init_params, param_count, param_shapes,
+                                       param_specs, to_numpy_flat)
+from repro_torch.models.ssm import init_ssm_cache
 
 LOSS_CHUNK = 512
 
@@ -28,7 +39,7 @@ def forward_hidden(cfg: ModelConfig, params, batch):
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = params["embed"][tokens]
-    x, moe_stats = tfm.decoder(cfg, params["decoder"], x, positions=positions)
+    x, _, moe_stats = tfm.decoder(cfg, params["decoder"], x, positions=positions)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), moe_stats
 
 
@@ -69,7 +80,83 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, dict]:
     return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": weight}
 
 
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
+               device="cuda") -> dict:
+    """A zeroed cache for ``batch`` sequences of up to ``max_len`` tokens:
+    ``{"blocks": {"sub0": {"kv": {"k", "v"}} | {"ssm": {"conv", "h"}}}}``,
+    each leaf with a leading layer axis; ``h`` is float32, the rest
+    ``dtype`` (the model's by default)."""
+    _refuse_unported(cfg)
+    _, n = cfg.scan_layers()
+    dtype = dtype or getattr(torch, cfg.dtype)
+    mixer = cfg.mixer_at(0)
+    if mixer == ATTN:
+        layer = {"kv": init_kv_cache(cfg, batch, max_len, dtype, device)}
+    elif mixer == SSM:
+        layer = {"ssm": init_ssm_cache(cfg, batch, dtype, device)}
+    else:
+        raise ValueError(mixer)
+    stacked = {k: t.expand(n, *t.shape).contiguous()
+               for k, t in flatten_tree(layer).items()}
+    return {"blocks": {"sub0": nest_flat(stacked)}}
+
+
+@torch.inference_mode()
+def prefill(cfg: ModelConfig, params, batch):
+    """Run the prompt; returns (cache at the prompt's length, last-token
+    logits[:, :vocab_size] in float32).  The cache is allocated once,
+    stacked, and each layer writes its slice; the caller pads it to
+    the serving window (``pad_cache``) before ``decode_step``."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cache = make_cache(cfg, B, S, dtype=params["embed"].dtype, device=tokens.device)
+    positions = torch.arange(S, device=tokens.device)
+    x = params["embed"][tokens]
+    x, cache, _ = tfm.decoder(cfg, params["decoder"], x, positions=positions,
+                              mode="prefill", cache=cache, pos=0)
+    x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)   # row-wise
+    logits = torch.matmul(x, _head_weight(cfg, params))
+    return cache, logits[:, :cfg.vocab_size].float()
+
+
+@torch.inference_mode()
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
+    """One decode step: tokens (B, 1), ``pos`` the tokens already in the
+    cache.  Returns (logits (B, vocab_size) float32, cache).
+
+    Unlike the reference, which returns a new cache pytree, this writes the
+    new token's keys and values (or conv window and state) into ``cache`` in
+    place and returns that same cache: a copy of yi-6b's 2.2 GB cache each
+    step would cost more than the step."""
+    positions = torch.arange(pos, pos + tokens.shape[1], device=tokens.device)
+    x = params["embed"][tokens]
+    x, cache, _ = tfm.decoder(cfg, params["decoder"], x, positions=positions,
+                              mode="decode", cache=cache, pos=pos)
+    x = rmsnorm(x[:, 0], params["final_norm"], cfg.norm_eps)
+    logits = torch.matmul(x, _head_weight(cfg, params))
+    return logits[:, :cfg.vocab_size].float(), cache
+
+
+@torch.inference_mode()
+def pad_cache(cfg: ModelConfig, cache, prompt_len: int, max_len: int):
+    """Grow prefill KV caches (sequence axis == prompt_len) to the serving
+    window.  Only leaves under a ``kv`` key are padded, on axis 2 (axis 0 is
+    the stacked layers: (layers, B, S, KV, hd)); SSM states and conv
+    windows are returned as they are."""
+    if max_len == prompt_len:
+        return cache
+    flat = flatten_tree(cache)
+    for key, t in flat.items():
+        if "kv" in key.split("/") and t.shape[2] == prompt_len:
+            flat[key] = F.pad(t, (0, 0, 0, 0, 0, max_len - prompt_len))
+    return nest_flat(flat)
+
+
 __all__ = ["forward_hidden", "loss_terms", "aux_loss", "loss_fn", "init_params",
            "param_specs", "param_shapes", "param_count", "count_params",
            "count_active_params", "from_numpy_flat", "to_numpy_flat",
-           "LOSS_CHUNK"]
+           "make_cache", "prefill", "decode_step", "pad_cache", "LOSS_CHUNK"]

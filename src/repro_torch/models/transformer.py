@@ -3,20 +3,26 @@ mixer is attention or the Mamba-2 SSD block, and its FFN dense, MoE or none,
 as ``cfg.mixer_at`` / ``cfg.ff_at`` say.
 
 Block parameters are stacked with a leading layer axis
-(``decoder/blocks/sub0/...``) as the reference scans them.  Each layer runs
-under ``torch.utils.checkpoint(use_reentrant=False)``, the counterpart of the
-reference's remat policy "full": only the residual stream is kept between
-layers and the layer is recomputed in the backward.
+(``decoder/blocks/sub0/...``) as the reference scans them, and so is the
+serving cache (``blocks/sub0/{kv: {k, v}} | {ssm: {conv, h}}``).  In train
+mode each layer runs under ``torch.utils.checkpoint(use_reentrant=False)``,
+the counterpart of the reference's remat policy "full": only the residual
+stream is kept between layers and the layer is recomputed in the backward.
+Prefill and decode call the layer directly, as the reference's
+``_maybe_remat`` does.
 
 The layer axis is split once, by ``_split_layers``, for every caller: a
 stacked leaf that takes a gradient gets per-layer leaves whose hooks add
-into its ``.grad``.
+into its ``.grad``; a cache leaf gets per-layer views, so a layer's in-place
+writes land in the stacked cache.
 
 Where the reference sums each MoE layer's aux loss, the port returns each
 MoE layer's ``moe.balance_stats`` sums: the loss is formed from them
 (``model.aux_loss``), over one batch or over a trainer's shards together.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -27,18 +33,26 @@ from repro_torch.models.layers import apply_ffn, rmsnorm
 from repro_torch.models.moe import moe_layer
 from repro_torch.models.ssm import ssm_forward
 
+MODES = ("train", "prefill", "decode")
 
-def apply_layer(cfg: ModelConfig, p: dict, x, layer_idx: int, *, positions):
+
+def apply_layer(cfg: ModelConfig, p: dict, x, layer_idx: int, *, positions,
+                mode: str = "train", cache: Optional[dict] = None,
+                pos: Optional[int] = None):
     """RMSNorm -> mixer -> residual [-> RMSNorm -> FFN -> residual].
-    Returns (x, the MoE layer's (psum, counts), or None)."""
+    Returns (x, the layer's cache ({"kv": ...} or {"ssm": ...}, updated in
+    place; None in train mode), the MoE layer's (psum, counts) or None)."""
     mixer = cfg.mixer_at(layer_idx)
     h = rmsnorm(x, p["mixer_norm"], cfg.norm_eps)
     if mixer == ATTN:
-        x = x + attn_forward(cfg, p["mixer"], h, positions=positions)
+        y, _ = attn_forward(cfg, p["mixer"], h, positions=positions, mode=mode,
+                            cache=cache["kv"] if cache else None, pos=pos)
     elif mixer == SSM:
-        x = x + ssm_forward(cfg, p["mixer"], h)
+        y, _ = ssm_forward(cfg, p["mixer"], h, mode=mode,
+                           cache=cache["ssm"] if cache else None)
     else:
         raise ValueError(mixer)
+    x = x + y
     ff = cfg.ff_at(layer_idx)
     stats = None
     if ff != FF_NONE:
@@ -48,7 +62,7 @@ def apply_layer(cfg: ModelConfig, p: dict, x, layer_idx: int, *, positions):
         else:
             y = apply_ffn(p["ff"], h, ff)
         x = x + y
-    return x, stats
+    return x, cache, stats
 
 
 def _grad_into(stacked: torch.Tensor, i: int):
@@ -89,13 +103,23 @@ def _split_layers(tree, n: int):
     return layers
 
 
-def decoder(cfg: ModelConfig, dparams: dict, x, *, positions):
-    """(x, [(psum, counts) of each MoE layer])."""
+def decoder(cfg: ModelConfig, dparams: dict, x, *, positions, mode: str = "train",
+            cache: Optional[dict] = None, pos: Optional[int] = None):
+    """(x, cache, [(psum, counts) of each MoE layer]).  Prefill and decode
+    take the stacked cache (``model.make_cache``) and write it in place."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
     prefix, n = cfg.scan_layers()
     moe_stats = []
-    for lp in _split_layers(dparams["blocks"]["sub0"], n):
-        x, stats = checkpoint(apply_layer, cfg, lp, x, prefix, positions=positions,
-                              use_reentrant=False)
+    layers = _split_layers(dparams["blocks"]["sub0"], n)
+    caches = _split_layers(cache["blocks"]["sub0"], n) if cache else [None] * n
+    for lp, c in zip(layers, caches):
+        if mode == "train":
+            x, _, stats = checkpoint(apply_layer, cfg, lp, x, prefix,
+                                     positions=positions, use_reentrant=False)
+        else:
+            x, _, stats = apply_layer(cfg, lp, x, prefix, positions=positions,
+                                      mode=mode, cache=c, pos=pos)
         if stats is not None:
             moe_stats.append(stats)
-    return x, moe_stats
+    return x, cache, moe_stats

@@ -386,3 +386,56 @@ def test_moe_forward_on_card_matches_the_cpu(impl):
     for i, (a, b) in enumerate(zip(cpu, card)):
         tol = 2e-5 if i < 2 else 1e-4
         torch.testing.assert_close(b.cpu(), a, atol=tol, rtol=tol)
+
+
+def _serve(cfg, params, tokens, prompt, steps):
+    """Prefill, pad to the window, ``steps`` decode steps fed the known
+    tokens; returns ([prefill logits, decode logits...], the cache, the
+    launch counts the prefill added, those the decode steps added)."""
+    before = ops.launch_counts()
+    cache, logits = M.prefill(cfg, params, {"tokens": tokens[:, :prompt]})
+    after = ops.launch_counts()
+    cache = M.pad_cache(cfg, cache, prompt, prompt + steps)
+    out = [logits]
+    for t in range(prompt, prompt + steps):
+        logits, cache = M.decode_step(cfg, params, cache, tokens[:, t:t + 1], t)
+        out.append(logits)
+    end = ops.launch_counts()
+    return (out, cache, {k: after[k] - before[k] for k in end},
+            {k: end[k] - after[k] for k in end})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-3b-a800m", "mamba2-1.3b"])
+def test_serving_on_card_matches_the_cpu(arch):
+    """A prefill of 16 tokens and 4 decode steps at smoke size, on the card
+    against the same on the CPU (logits and every cache leaf within 2e-5);
+    on the card a prefill launches its mixer's kernel once a layer and a
+    decode step launches none."""
+    dev = _card()
+    cfg = smoke_config(arch).with_(dtype="float32")
+    params = M.init_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 20)))
+    want, want_cache, cpu_prefill, cpu_decode = _serve(cfg, params, tokens, 16, 4)
+    assert not any(cpu_prefill.values()) and not any(cpu_decode.values())
+    card_params = M.from_numpy_flat(M.to_numpy_flat(params), device=dev)
+    got, cache, prefill, decode = _serve(cfg, card_params, tokens.to(dev), 16, 4)
+    kernel = "ssd" if cfg.ssm is not None else "flash_attention"
+    assert prefill == {k: cfg.num_layers if k == kernel else 0 for k in prefill}
+    assert not any(decode.values())
+    for a, b in zip(want, got):
+        torch.testing.assert_close(b.cpu(), a, atol=2e-5, rtol=2e-5)
+    want_flat, got_flat = flatten_tree(want_cache), flatten_tree(cache)
+    assert list(got_flat) == list(want_flat)
+    for k, a in want_flat.items():
+        assert got_flat[k].dtype == a.dtype, k
+        torch.testing.assert_close(got_flat[k].cpu(), a, atol=2e-5, rtol=2e-5, msg=k)
+
+
+@pytest.mark.cuda
+def test_serving_refuses_a_mamba2_prompt_off_the_chunk_on_card():
+    dev = _card()
+    cfg = smoke_config("mamba2-1.3b").with_(dtype="float32")
+    params = M.init_params(cfg, 0, device=dev)
+    with pytest.raises(ValueError, match="sequence length 12 is not a multiple of chunk 8"):
+        M.prefill(cfg, params, {"tokens": torch.zeros((2, 12), dtype=torch.long, device=dev)})

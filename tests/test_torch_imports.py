@@ -84,16 +84,22 @@ MODEL_MODULES = {
 }
 
 
+# serving: the serve CLI and the analytic FLOP models
+SERVE_MODULES = {"repro_torch.launch.serve", "repro_torch.utils",
+                 "repro_torch.utils.flops"}
+
+
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 71, proc.stdout
+    assert n >= 74, proc.stdout
     names = set(proc.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
     assert OPERATOR_MODULES <= names, sorted(OPERATOR_MODULES - names)
     assert SIMULATOR_MODULES <= names, sorted(SIMULATOR_MODULES - names)
     assert CLOUD_MODULES <= names, sorted(CLOUD_MODULES - names)
     assert WORKLOAD_MODULES <= names, sorted(WORKLOAD_MODULES - names)
     assert MODEL_MODULES <= names, sorted(MODEL_MODULES - names)
+    assert SERVE_MODULES <= names, sorted(SERVE_MODULES - names)

@@ -128,8 +128,8 @@ def test_ssm_forward_train_matches_jax():
               if k.startswith(pre)}
     xin = np.random.default_rng(3).standard_normal((2, 32, 64)).astype(np.float32)
     exp, _ = jssm.ssm_forward(jcfg, layer0, jnp.asarray(xin), mode="train")
-    out = ssm.ssm_forward(cfg, {k: torch.from_numpy(v) for k, v in layer0.items()},
-                          torch.from_numpy(xin))
+    out, _ = ssm.ssm_forward(cfg, {k: torch.from_numpy(v) for k, v in layer0.items()},
+                             torch.from_numpy(xin))
     np.testing.assert_allclose(out.numpy(), np.asarray(exp), atol=2e-5, rtol=2e-5)
 
 
