@@ -31,10 +31,10 @@ without a CUDA device the script exits non-zero before printing a result:
    full published size (48 layers, 1,344,052,224 parameters);
 5. a static vs rescaled trajectory check at depth 1, for each path and for
    granite-moe-3b-a800m (whose load-balance loss is the global batch's at
-   every replica count);
+   every replica count) and deepseek-v2-236b (its dense MLA prefix layer);
 6. ``repro_torch.launch.train --smoke`` on the card with ``--rescale-at``,
    ``--checkpoint-dir`` and ``--restart``, for each arch the port builds
-   (SwiGLU, GELU, squared ReLU, qk_norm, MoE and Mamba-2);
+   (SwiGLU, GELU, squared ReLU, qk_norm, MoE, MLA and Mamba-2);
 7. the live operator (``ElasticClusterController``) at full width, with
    the launch counts zeroed before the phase and read after it: scenario A
    (priority shrink and expand-back of two yi-6b depth-4 jobs on 8 logical
@@ -103,7 +103,25 @@ without a CUDA device the script exits non-zero before printing a result:
     (``torch.profiler``), peak memory, and the decode logits held to the
     training forward's at the generated positions (teacher forcing); then
     ``python -m repro_torch.launch.serve --smoke`` on the card for yi-6b,
-    granite-moe-3b-a800m and mamba2-1.3b.
+    granite-moe-3b-a800m, mamba2-1.3b and deepseek-v2-236b;
+13. multi-head latent attention, ``[mla]`` lines: deepseek-v2-236b at its
+    full published width (d_model 5120, 128 heads, q/kv lora 1536/512,
+    qk 128+64, v 128, 160 routed experts top-6 and 2 shared of 1536, vocab
+    102,400).  (a) Its training job cut to depth 1, the dense prefix layer
+    alone (1,386,562,560 parameters), through phase 4's sequence at the
+    operator's peak rate, as phase 11 runs granite: every loss finite, the
+    first near ln 102400, aux 0 (no MoE layer), no flash launch, the pack
+    kernel once a dtype group of the host-lane snapshot, the restored state
+    byte for byte the snapshot; step s, tokens/s, rescale stages, peak
+    memory, a profiled step and the arch model beside the step.  (b) Served
+    with the prefix layer and 3 MoE layers (13,302,912,000 parameters) at
+    phase 12's batch, prompt and generation, decode absorbed (W_UK folded
+    into the query, scores against the latent cache): prefill and decode
+    times against the reference FLOPs and the byte bound, idle shares,
+    peak memory, no kernel launch; its first decode step also through the
+    unabsorbed form from the same cache, the logits held together within
+    ``SERVE_TF_TOL`` scaled.  (c) Teacher forcing at full width under the
+    dense MoE: one prompt of 32 tokens, 16 decode steps.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
@@ -118,7 +136,8 @@ and 0 launches; ``flash_attention_granite`` and ``pack_granite`` are flash
 attention and the parameters' pack at phase 11's shapes, on its path
 ``granite-moe-3b-a800m``; ``flash_attention_serve`` and ``ssd_serve`` are
 the two kernels at phase 12's prefill shapes (batch 8), on its paths
-``yi-6b-serve`` and ``mamba2-1.3b-serve``.
+``yi-6b-serve`` and ``mamba2-1.3b-serve``; ``pack_deepseek`` is the pack of
+phase 13's host-lane snapshot, on its path ``deepseek-v2-236b``.
 """
 import contextlib
 import dataclasses
@@ -146,7 +165,7 @@ from repro_torch.checkpoint import (DiskCheckpointStore, flatten_tree,  # noqa: 
 from repro_torch.checkpoint.reshard import host_tensor  # noqa: E402
 from repro_torch.cloud import (SPOT, AutoscalerConfig, CloudProvider,  # noqa: E402
                                CloudSimulator, NodeAutoscaler, NodePool)
-from repro_torch.configs import ATTN, get_config  # noqa: E402
+from repro_torch.configs import ATTN, FF_MOE, SSM, get_config  # noqa: E402
 from repro_torch.core import elastic  # noqa: E402
 from repro_torch.core import (ElasticClusterController, ElasticTrainer,  # noqa: E402
                               JobSpec, JobStatus, PolicyConfig,
@@ -163,6 +182,8 @@ from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.moe import set_moe_impl  # noqa: E402
+from repro_torch.models.transformer import set_mla_absorb  # noqa: E402
 from repro_torch.obs import (SimProfiler, Tracer, build_span_graph,  # noqa: E402
                              install, install_profiler)
 from repro_torch.obs.audit import audit_records  # noqa: E402
@@ -263,7 +284,7 @@ MOE_JOB = dict(MAIN_JOB, peak_lr=OPERATOR_JOB["peak_lr"])
 CARD_MEMORY = 80e9
 # the archs whose CLI smoke runs in phase 6 besides phase 4's paths
 CLI_ARCHS = ("granite-moe-3b-a800m", "yi-9b", "starcoder2-7b", "minitron-4b",
-             "chameleon-34b")
+             "chameleon-34b", "deepseek-v2-236b")
 # phase 12: serving at full published size in float32 (the reference's
 # serve CLI forces it): a batch of 8 prompts of 2048 tokens, 64 generated
 # tokens (63 decode steps); the decode logits are held to the training
@@ -272,7 +293,23 @@ CLI_ARCHS = ("granite-moe-3b-a800m", "yi-9b", "starcoder2-7b", "minitron-4b",
 SERVE = dict(batch=8, prompt=2048, gen=64, seed=0)
 SERVE_ARCHS = ("yi-6b", "mamba2-1.3b")
 SERVE_TF_TOL = 2e-4
-SERVE_CLI_ARCHS = ("yi-6b", GRANITE, "mamba2-1.3b")
+# phase 13: deepseek-v2-236b (MLA, a dense first layer, then layers of 160
+# routed experts top-6 and 2 shared) at its full published width.  It trains
+# at depth 1, the dense prefix layer alone (1,386,562,560 parameters, 22.2 GB
+# of float32 AdamW state; with one MoE layer the state would be 85.7 GB), at
+# phase 4's batch and replicas and the operator's peak rate; it serves with
+# the prefix layer and 3 MoE layers (13,302,912,000 parameters, 53.2 GB in
+# float32) at phase 12's batch, prompt and generation, decode absorbed.  A
+# random model's first loss is about ln V (+ 0.5 for unit-variance logits).
+# Teacher forcing at full width runs the MoE in its dense form, as the
+# reference's test does (the capacity dispatch depends on the batch), on one
+# prompt of 32 tokens and 16 decode steps
+DEEPSEEK = "deepseek-v2-236b"
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_PARAMS = 1, 1_386_562_560
+DEEPSEEK_SERVE_LAYERS, DEEPSEEK_SERVE_PARAMS = 4, 13_302_912_000
+FIRST_LOSS_TOL = 1.0
+MLA_TF = dict(batch=1, prompt=32, gen=17)
+SERVE_CLI_ARCHS = ("yi-6b", GRANITE, "mamba2-1.3b", DEEPSEEK)
 
 
 def serve_path(arch):
@@ -1197,14 +1234,14 @@ def arch_prediction(cfg):
     return dataclasses.replace(m, peak_flops=H100_PEAK_FLOPS_FP32, gpus_per_group=1)
 
 
-def arch_vs_card(cfg, step_s, card):
+def arch_vs_card(cfg, step_s, card, tag="simulator"):
     """The arch model's prediction beside phase 4's steady R=4 step (the
     median of its R=4 steps after the first) and their ratio.  No gate."""
     m = arch_prediction(cfg)
     predicted = m.time_per_step(1)
     r4 = sorted(s for s, r in list(zip(step_s, MAIN_REPLICAS))[1:] if r == 4)
     measured = r4[len(r4) // 2]
-    say("simulator", arch=cfg.name, layers=cfg.num_layers, flops=f"{m.flops_per_step:.4e}",
+    say(tag, arch=cfg.name, layers=cfg.num_layers, flops=f"{m.flops_per_step:.4e}",
         peak_flops=m.peak_flops, mfu=m.mfu, predicted_s=f"{predicted:.4f}",
         measured_r4_s=f"{measured:.4f}", measured_over_predicted=f"{measured / predicted:.4f}",
         fp32_peak_share=f"{m.flops_per_step / measured / m.peak_flops:.4f}",
@@ -1572,12 +1609,20 @@ def host_memory():
             "rss_gb": f"{rss / 1e9:.2f}", "rss_peak_gb": f"{peak / 1e9:.2f}"}
 
 
-def moe_phase(cfg, job=MOE_JOB, device="cuda"):
-    """Phase 11: an ``ElasticTrainer`` of ``cfg`` (granite-moe-3b-a800m at
-    its published size on the card) through phase 4's sequence, launch
-    counts zeroed before and read after.  Pinned host blocks cached by
-    earlier phases are released first: the snapshot needs about 52 GB of
-    them.  Returns (launch counts by dtype, step seconds)."""
+def job_phase(cfg, tag, job=MOE_JOB, device="cuda", reduced="none"):
+    """An ``ElasticTrainer`` of ``cfg`` at full width through phase 4's
+    sequence, logged under ``tag``, launch counts zeroed before and read
+    after: phase 11 (granite-moe-3b-a800m) and phase 13's training job
+    (deepseek-v2-236b at depth 1).  Pinned host blocks cached by earlier
+    phases are released first: a snapshot needs tens of GB of them.  Every
+    loss and aux finite (aux above 0 where the model has MoE layers, 0
+    where it has none), flash attention launched twice a GQA layer and
+    replica-step (forward and recompute), the pack kernel once a dtype
+    group of the one host-lane snapshot (float32 parameters, float32
+    moments, the int32 count), and the state restored on the host lane
+    byte for byte the snapshot it was restored from.  Returns (launch
+    counts by dtype, step seconds, losses).  ``reduced`` says how the
+    config was cut from its published size."""
     t_phase = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
     gc.collect()
@@ -1587,7 +1632,7 @@ def moe_phase(cfg, job=MOE_JOB, device="cuda"):
         if release is not None:
             release()
         torch.cuda.reset_peak_memory_stats()
-    say("moe", pinned_cache_released=on_card and release is not None, **host_memory())
+    say(tag, pinned_cache_released=on_card and release is not None, **host_memory())
     ops.reset_launch_counts()
 
     def held_to_snapshot(t):
@@ -1595,46 +1640,54 @@ def moe_phase(cfg, job=MOE_JOB, device="cuda"):
         t0 = time.perf_counter()
         same_p, nb_p = state_matches(t.params, params_flat)
         same_o, nb_o = state_matches(t.opt_state, opt_flat)
-        say("moe", restored_vs_snapshot_byte_exact=same_p and same_o, bytes=nb_p + nb_o,
+        say(tag, restored_vs_snapshot_byte_exact=same_p and same_o, bytes=nb_p + nb_o,
             compare_s=f"{time.perf_counter() - t0:.2f}", **host_memory())
-        check(same_p and same_o, "moe: the state restored on the host lane differs "
+        check(same_p and same_o, f"{tag}: the state restored on the host lane differs "
               "from the snapshot it was restored from")
         kept.clear()
 
     with kept_restores() as kept:
-        t, step_s, timings = run_elastic(cfg, TrainJobConfig(**job), log="moe",
+        t, step_s, timings = run_elastic(cfg, TrainJobConfig(**job), log=tag,
                                          device=device, on_shrink=held_to_snapshot)
     if on_card:
         torch.cuda.synchronize()
     counts = ops.launch_counts()
     by_dtype = ops.launch_counts_by_dtype()
     ms = t.metrics_log
-    check(all(math.isfinite(m["loss"]) and math.isfinite(m["aux"]) and m["aux"] > 0
-              for m in ms), f"moe: losses and aux {[(m['loss'], m['aux']) for m in ms]}")
+    has_moe = any(cfg.ff_at(i) == FF_MOE for i in range(cfg.num_layers))
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["aux"])
+              and (m["aux"] > 0) == has_moe for m in ms),
+          f"{tag}: losses and aux {[(m['loss'], m['aux']) for m in ms]}")
     check([r.path for r in timings] == ["host", "p2p"],
-          f"moe: paths {[r.path for r in timings]}")
+          f"{tag}: paths {[r.path for r in timings]}")
     for r in timings:
-        say("moe", rescale=r.path, **{k: f"{v:.4f}" for k, v in r.as_dict().items()})
-    expected = 2 * cfg.num_layers * sum(MAIN_REPLICAS) if on_card else 0
+        say(tag, rescale=r.path, **{k: f"{v:.4f}" for k, v in r.as_dict().items()})
+    gqa_layers = sum(cfg.mixer_at(i) == ATTN for i in range(cfg.num_layers))
+    expected = 2 * gqa_layers * sum(MAIN_REPLICAS) if on_card else 0
+    expected_pack = {"float32": 2, "int32": 1} if on_card else {}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
-    say("moe", arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
-        active_params=M.count_active_params(cfg), reduced="none",
+    say(tag, arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
+        active_params=M.count_active_params(cfg), reduced=reduced,
         startup_s=f"{t.startup_time:.2f}", step_s=[round(x, 4) for x in step_s],
         tokens_per_s=f"{job['global_batch'] * job['seq_len'] / min(step_s):.0f}",
         peak_gb=f"{peak / 1e9:.2f}", **host_memory(), launches=json.dumps(counts),
-        expected_flash_attention=expected)
+        pack_launches=json.dumps(by_dtype["pack"]).replace(" ", ""),
+        expected_flash_attention=expected,
+        expected_pack=json.dumps(expected_pack).replace(" ", ""))
     check(counts["flash_attention"] == expected,
-          f"moe: flash launches {counts['flash_attention']} != {expected}")
-    check((counts["pack"] > 0) == on_card, f"moe: pack launches {counts['pack']}")
-    check(peak < CARD_MEMORY, f"moe: peak memory {peak / 1e9:.2f} GB")
+          f"{tag}: flash launches {counts['flash_attention']} != {expected}")
+    check(by_dtype["pack"] == expected_pack,
+          f"{tag}: pack launches {by_dtype['pack']} != {expected_pack}")
+    check(peak < CARD_MEMORY, f"{tag}: peak memory {peak / 1e9:.2f} GB")
     if on_card:
         profile_step(t)
+    losses = [m["loss"] for m in ms]
     del t
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    say("moe", seconds=f"{time.perf_counter() - t_phase:.1f}")
-    return by_dtype, step_s
+    say(tag, seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return by_dtype, step_s, losses
 
 
 # -- phase 12 ------------------------------------------------------------------------
@@ -1642,17 +1695,17 @@ def moe_phase(cfg, job=MOE_JOB, device="cuda"):
 def decode_step_bytes(cfg, params, cache, batch, ctx):
     """The least bytes a decode step with ``ctx`` tokens in the cache moves:
     every weight read once (an untied embedding table only for the rows it
-    gathers), the keys and values of ``ctx + 1`` positions a layer read and
-    the new position's written, or the SSM conv window and state read and
-    written."""
+    gathers), the cache entries (keys and values, or MLA's latent and rope
+    key) of ``ctx + 1`` positions a layer read and the new position's
+    written, or the SSM conv window and state read and written."""
     w = nbytes(*flatten_tree(params).values())
     if not cfg.tie_embeddings:
         e = params["embed"]
         w -= (e.shape[0] - batch) * e.shape[1] * e.element_size()
     c = 0
     for key, t in flatten_tree(cache).items():
-        if "/kv/" in key:               # (layers, B, window, KV, hd)
-            per_pos = nbytes(t) // t.shape[2]
+        if "/kv/" in key:               # (layers, B, window, ...) or, prefix, (B, window, ...)
+            per_pos = nbytes(t) // t.shape[1 if key.startswith("prefix/") else 2]
             c += per_pos * (ctx + 2)
         else:
             c += 2 * nbytes(t)
@@ -1660,16 +1713,25 @@ def decode_step_bytes(cfg, params, cache, batch, ctx):
 
 
 def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
-                gen=SERVE["gen"], device="cuda"):
+                gen=SERVE["gen"], device="cuda", tag="serve", forced=True,
+                reduced="none"):
     """Phase 12 for one model: a prefill of ``batch`` random prompts of
     ``prompt`` tokens, ``pad_cache`` to the serving window, ``gen - 1``
     greedy decode steps, each timed to a device sync and with the launch
-    counts zeroed before and read after; then (on the card) one prefill and
-    one decode step under ``torch.profiler``; then teacher forcing: the
+    counts zeroed before and read after (a prefill launches flash attention
+    once a GQA layer and the SSD scan once a Mamba-2 layer, a decode step
+    neither); then (on the card) one prefill and one decode step under
+    ``torch.profiler``; then, with ``forced``, teacher forcing: the
     training forward over the prompt and the decoded inputs (padded at the
     end to the SSD's chunk, which leaves earlier positions unchanged), its
-    logits at the generated positions held to the decode logits.  Returns
-    the launch counts by dtype of the prefill and the decode loop."""
+    logits at the generated positions held to the decode logits (not under
+    the MoE's gather dispatch, whose drops depend on the batch).  An MLA
+    model's first decode step runs once more through the unabsorbed form
+    first, from the same cache, and the two steps' logits are held together
+    (each layer writes its new latent entry before it reads the cache, so
+    the absorbed step's entries replace the unabsorbed one's).  Lines are
+    logged under ``tag``; ``reduced`` says how ``cfg`` was cut.
+    Returns the launch counts by dtype of the prefill."""
     t_model = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
 
@@ -1684,7 +1746,6 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     g = torch.Generator(device=device).manual_seed(SERVE["seed"])
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g, device=device)
     max_len = prompt + gen
-    kernel = "flash_attention" if cfg.mixer_at(0) == ATTN else "ssd"
     none = {k: {} for k in ops.launch_counts()}
 
     sync()
@@ -1698,15 +1759,35 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     cache = M.pad_cache(cfg, cache, prompt, max_len)
     sync()
     pad_s = time.perf_counter() - t0
-    want = dict(none, **{kernel: {"float32": cfg.num_layers}}) if on_card else none
-    check(prefill_counts == want, f"serve {cfg.name}: prefill launches {prefill_counts} "
+    want = {k: {} for k in none}
+    if on_card:
+        for kernel, mixer in (("flash_attention", ATTN), ("ssd", SSM)):
+            n = sum(cfg.mixer_at(i) == mixer for i in range(cfg.num_layers))
+            if n:
+                want[kernel] = {"float32": n}
+    check(prefill_counts == want, f"{tag} {cfg.name}: prefill launches {prefill_counts} "
           f"!= {want}")
     check(logits.shape == (batch, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
-          f"serve {cfg.name}: prefill logits {tuple(logits.shape)}")
+          f"{tag} {cfg.name}: prefill logits {tuple(logits.shape)}")
 
     toks = logits.argmax(-1, keepdim=True)
     out, step_logits = [toks], [logits]
     ops.reset_launch_counts()
+    if cfg.mla is not None:
+        set_mla_absorb("decode", False)
+        try:
+            unabsorbed, _ = M.decode_step(cfg, params, cache, toks, prompt)
+        finally:
+            set_mla_absorb("decode", True)
+        absorbed, _ = M.decode_step(cfg, params, cache, toks, prompt)
+        scale = max(1.0, float(unabsorbed.abs().max()))
+        err = float((absorbed - unabsorbed).abs().max()) / scale
+        say(tag, arch=cfg.name, absorbed_vs_unabsorbed_pos=prompt,
+            max_abs_err_over_scale=err, scale=scale, tol=SERVE_TF_TOL)
+        check(math.isfinite(err) and err <= SERVE_TF_TOL,
+              f"{tag} {cfg.name}: absorbed vs unabsorbed decode {err} > {SERVE_TF_TOL}")
+        del unabsorbed, absorbed
+        sync()
     t0 = time.perf_counter()
     for pos in range(prompt, max_len - 1):
         logits, cache = M.decode_step(cfg, params, cache, toks, pos)
@@ -1716,7 +1797,7 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     sync()
     decode_s = time.perf_counter() - t0
     decode_counts = ops.launch_counts_by_dtype()
-    check(decode_counts == none, f"serve {cfg.name}: decode launched {decode_counts}")
+    check(decode_counts == none, f"{tag} {cfg.name}: decode launched {decode_counts}")
     n = len(out) - 1
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
@@ -1726,14 +1807,14 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     step_flops = sum(decode_flops(cfg, batch, pos) for pos in steps) / n
     bound_ms = step_bytes / PEAK_BYTES * 1e3
     step_ms = decode_s * 1e3 / n
-    say("serve", arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
-        reduced="none", batch=batch, prompt=prompt, generated=gen, decode_steps=n,
+    say(tag, arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
+        reduced=reduced, batch=batch, prompt=prompt, generated=gen, decode_steps=n,
         prefill_s=f"{prefill_s:.4f}", prefill_tokens_per_s=f"{batch * prompt / prefill_s:.0f}",
         pad_cache_s=f"{pad_s:.4f}", decode_s=f"{decode_s:.4f}",
         decode_ms_per_step=f"{step_ms:.4f}",
         decode_tokens_per_s=f"{batch * n / decode_s:.0f}",
         peak_gb=f"{peak / 1e9:.2f}", card=json.dumps(card))
-    say("serve", arch=cfg.name, prefill_ref_flops=f"{flops:.6e}",
+    say(tag, arch=cfg.name, prefill_ref_flops=f"{flops:.6e}",
         ref_flops_count_masked_tiles=True,
         prefill_tflops=f"{flops / prefill_s / 1e12:.2f}",
         fp32_peak_share=f"{flops / prefill_s / H100_PEAK_FLOPS_FP32:.4f}",
@@ -1741,7 +1822,7 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
         decode_bytes_per_step=f"{step_bytes:.6e}",
         decode_bound_ms_per_step=f"{bound_ms:.4f}",
         decode_of_bound=f"{bound_ms / step_ms:.4f}", card=json.dumps(card))
-    say("serve", arch=cfg.name, prefill_launches=json.dumps(prefill_counts).replace(" ", ""),
+    say(tag, arch=cfg.name, prefill_launches=json.dumps(prefill_counts).replace(" ", ""),
         decode_launches=json.dumps(decode_counts).replace(" ", ""),
         expected_prefill=json.dumps(want).replace(" ", ""))
 
@@ -1750,33 +1831,43 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
                          ("decode_step", lambda: M.decode_step(cfg, params, cache, toks,
                                                                max_len - 1))):
             wall_ms, by_name, busy_ms = device_profile(fn)
-            check(busy_ms > 0, f"serve {cfg.name}: the profiler saw no device time")
-            say("serve", arch=cfg.name, profile=what, wall_ms=f"{wall_ms:.3f}",
+            check(busy_ms > 0, f"{tag} {cfg.name}: the profiler saw no device time")
+            say(tag, arch=cfg.name, profile=what, wall_ms=f"{wall_ms:.3f}",
                 device_ms=f"{busy_ms:.3f}", idle_share=f"{1 - busy_ms / wall_ms:.4f}",
                 kernels=sum(k for k, _ in by_name.values()),
                 **{f"{grp}_ms": f"{v:.3f}" for grp, v in kernel_groups(by_name).items()})
 
+    if forced:
+        teacher_forcing(cfg, params, prompts, out, step_logits, tag)
+    del params, cache, step_logits
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    say(tag, arch=cfg.name, seconds=f"{time.perf_counter() - t_model:.1f}")
+    return prefill_counts           # the decode loop's are checked to be none
+
+
+def teacher_forcing(cfg, params, prompts, out, step_logits, tag):
+    """The training forward over the prompt and the decoded inputs (padded
+    at the end to the SSD's chunk, which leaves earlier positions
+    unchanged), its logits at the generated positions held to the decode
+    logits within ``SERVE_TF_TOL`` x max(1, max |logit|)."""
+    prompt = prompts.shape[1]
     seq = torch.cat([prompts, *out[:-1]], dim=1)         # the decode steps' inputs
     pad = -seq.shape[1] % cfg.ssm.chunk if cfg.ssm is not None else 0
     with torch.inference_mode():
         hidden, _ = M.forward_hidden(cfg, params, {"tokens": torch.nn.functional.pad(
             seq, (0, pad))})
-        forced = torch.matmul(hidden[:, prompt - 1:max_len - 1],
+        forced = torch.matmul(hidden[:, prompt - 1:seq.shape[1]],
                               M._head_weight(cfg, params))[..., :cfg.vocab_size].float()
     del hidden
     got = torch.stack(step_logits, dim=1)
     scale = max(1.0, float(forced.abs().max()))
     err = float((got - forced).abs().max()) / scale
-    say("serve", arch=cfg.name, teacher_forcing_positions=got.shape[1],
+    say(tag, arch=cfg.name, teacher_forcing_positions=got.shape[1],
         teacher_forcing_pad=pad, max_abs_err_over_scale=err, scale=scale, tol=SERVE_TF_TOL)
     check(math.isfinite(err) and err <= SERVE_TF_TOL,
-          f"serve {cfg.name}: decode vs teacher forcing {err} > {SERVE_TF_TOL}")
-    del params, cache, got, forced, step_logits
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
-    say("serve", arch=cfg.name, seconds=f"{time.perf_counter() - t_model:.1f}")
-    return prefill_counts           # the decode loop's are checked to be none
+          f"{tag} {cfg.name}: decode vs teacher forcing {err} > {SERVE_TF_TOL}")
 
 
 def serve_cli_smoke(arch):
@@ -1808,6 +1899,46 @@ def serve_phase(card):
     return counts
 
 
+# -- phase 13 ------------------------------------------------------------------------
+
+def mla_phase(card, device="cuda", train_cfg=None, serve_cfg=None, job=MOE_JOB,
+              serve=SERVE, tf=MLA_TF):
+    """Phase 13, ``[mla]`` lines: deepseek-v2-236b's training job at depth 1
+    through phase 4's sequence (``job_phase``; its first loss held near
+    ln V), the arch model beside its steady step; then served with 3 MoE
+    layers (``serve_model``, decode absorbed, checked against the
+    unabsorbed form on its first step); then teacher forcing under the
+    dense MoE (at batch 1, with the absorbed check again).  The configs and sizes default to the card's; the CPU tests
+    pass smoke ones.  Returns (the training job's launch counts by dtype,
+    the serving prefill's)."""
+    t_phase = time.perf_counter()
+    full = get_config(DEEPSEEK)
+    train_cfg = train_cfg or full.with_(num_layers=DEEPSEEK_TRAIN_LAYERS)
+    serve_cfg = serve_cfg or full.with_(num_layers=DEEPSEEK_SERVE_LAYERS, dtype="float32")
+    cut = f"depth:{{}}/{full.num_layers}"
+    train_counts, step_s, losses = job_phase(
+        train_cfg, "mla", job=job, device=device,
+        reduced=cut.format(train_cfg.num_layers))
+    ln_v = math.log(train_cfg.vocab_size)
+    say("mla", arch=train_cfg.name, first_loss=losses[0], ln_vocab=ln_v,
+        first_loss_minus_ln_vocab=losses[0] - ln_v, tol=FIRST_LOSS_TOL)
+    check(abs(losses[0] - ln_v) <= FIRST_LOSS_TOL,
+          f"mla: first loss {losses[0]} is not near ln V = {ln_v}")
+    if torch.device(device).type == "cuda":
+        arch_vs_card(train_cfg, step_s, card, tag="mla")
+    serve_counts = serve_model(serve_cfg, card, device=device, tag="mla", forced=False,
+                               reduced=cut.format(serve_cfg.num_layers),
+                               **{k: serve[k] for k in ("batch", "prompt", "gen")})
+    set_moe_impl("dense")
+    try:
+        serve_model(serve_cfg, card, device=device, tag="mla",
+                    reduced=cut.format(serve_cfg.num_layers), **tf)
+    finally:
+        set_moe_impl("gather")
+    say("mla", seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
+    return train_counts, serve_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1830,14 +1961,22 @@ def main():
           == (GRANITE_PARAMS, GRANITE_ACTIVE_PARAMS),
           f"{GRANITE} has {M.param_count(granite)} parameters, "
           f"{M.count_active_params(granite)} active")
+    deepseek = get_config(DEEPSEEK)
+    for layers, n in ((DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_PARAMS),
+                      (DEEPSEEK_SERVE_LAYERS, DEEPSEEK_SERVE_PARAMS)):
+        got = M.param_count(deepseek.with_(num_layers=layers))
+        check(got == n, f"{DEEPSEEK} at depth {layers} has {got} parameters, not {n}")
     records = [*check_flash(gen), check_rmsnorm(gen), *check_ssd(gen)]
     records += [check_pack(cfg, gen, "pack", cfg.name) for cfg in paths]
     records.append(check_pack(paths[0], gen, "pack_bf16", BF16_PATH, torch.bfloat16))
     # the host-lane snapshot's float32 parameter group at granite's size
     records.append(check_pack(granite, gen, "pack_granite", GRANITE, torch.float32))
+    # the host-lane snapshot of phase 13's training job: all three groups
+    records.append(check_pack(deepseek.with_(num_layers=DEEPSEEK_TRAIN_LAYERS), gen,
+                              "pack_deepseek", DEEPSEEK))
     runs = {cfg.name: main_path(cfg) for cfg in paths}
     counts = {name: c for name, (c, _, _) in runs.items()}    # by path
-    for arch in [cfg.name for cfg in paths] + [GRANITE]:
+    for arch in [cfg.name for cfg in paths] + [GRANITE, DEEPSEEK]:
         trajectory(arch)
     for arch in [cfg.name for cfg in paths] + list(CLI_ARCHS):
         train_cli_smoke(arch)
@@ -1850,9 +1989,10 @@ def main():
         counts[BF16_PATH] = bf16_phase(paths[0], os.path.join(trace_dir, "bf16_ckpt"),
                                        runs[paths[0].name][2][0])
         cloud_phase(card, trace_dir)
-    counts[GRANITE], moe_steps = moe_phase(granite)
+    counts[GRANITE], moe_steps, _ = job_phase(granite, "moe")
     arch_vs_card(granite, moe_steps, card)
     counts.update(serve_phase(card))
+    counts[DEEPSEEK], counts[serve_path(DEEPSEEK)] = mla_phase(card)
     for rec in records:     # launches on the path its shapes are from, and the operator's
         rec["launches"] = launches_of(rec, counts.get(rec["path"], {}))
         rec["operator_launches"] = launches_of(rec, op_counts)

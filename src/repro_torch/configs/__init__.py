@@ -1,11 +1,13 @@
 """Architecture configs of the port: dense yi-6b, yi-9b, starcoder2-7b,
-minitron-4b, the chameleon-34b backbone, the granite-moe-3b-a800m MoE and
-Mamba-2 mamba2-1.3b.
+minitron-4b, the chameleon-34b backbone, the granite-moe-3b-a800m MoE,
+the deepseek-v2-236b MLA + MoE model and Mamba-2 mamba2-1.3b.
 
 ``get_config(arch)`` returns the full published config; ``smoke_config(arch)``
 the same tiny variant as ``repro.configs.smoke_config`` (d_model 64, vocab 128
-padded to 256; attention: 4 heads, 2 KV heads, head_dim 16; MoE: 4 experts,
-top-2, expert d_ff 32; SSM: d_state 16, head_dim 16, one group, chunk 8).
+padded to 256; attention: 4 heads, 2 KV heads, head_dim 16; MLA: 4 heads,
+q/kv lora 32, nope 16, rope 8, v 16; MoE: 4 experts, top-2, expert d_ff 32,
+its ``first_dense`` layers added to the depth; SSM: d_state 16, head_dim 16,
+one group, chunk 8; an encoder of 2 layers).
 """
 import dataclasses
 
@@ -16,21 +18,27 @@ from repro_torch.configs.base import (ATTN, FF_GELU, FF_MOE, FF_NONE,
                                       count_active_params, count_params,
                                       get_config, list_archs, register,
                                       shape_applicable)
-from repro_torch.configs import (chameleon_34b, granite_moe_3b_a800m,  # noqa: F401
-                                 mamba2_1_3b, minitron_4b, starcoder2_7b,
-                                 yi_6b, yi_9b)
+from repro_torch.configs import (chameleon_34b, deepseek_v2_236b,  # noqa: F401
+                                 granite_moe_3b_a800m, mamba2_1_3b,
+                                 minitron_4b, starcoder2_7b, yi_6b, yi_9b)
 
 
-def smoke_config(arch: str) -> ModelConfig:
+def smoke_config(arch: str, *, layers_per_period: int = 1) -> ModelConfig:
     """Tiny structurally faithful variant of ``arch`` for CPU tests."""
     cfg = get_config(arch)
-    kw = dict(name=cfg.name + "-smoke",
-              num_layers=max(2, cfg.layer_period()), d_model=64,
+    num_layers = max(2, cfg.layer_period() * layers_per_period)
+    num_layers += cfg.moe.first_dense if cfg.moe else 0
+    kw = dict(name=cfg.name + "-smoke", num_layers=num_layers, d_model=64,
               d_ff=128 if cfg.d_ff else 0, vocab_size=128, expected_params=0.0)
     if cfg.num_heads:
         kw.update(num_heads=4,
                   num_kv_heads=2 if cfg.num_kv_heads < cfg.num_heads else 4,
                   head_dim=16)
+    if cfg.mla is not None:
+        kw.update(mla=MLAConfig(q_lora_rank=32, kv_lora_rank=32,
+                                qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                v_head_dim=16),
+                  num_heads=4, num_kv_heads=4, head_dim=16)
     if cfg.moe is not None:
         kw.update(moe=dataclasses.replace(
             cfg.moe, num_experts=4,
@@ -39,6 +47,8 @@ def smoke_config(arch: str) -> ModelConfig:
     if cfg.ssm is not None:
         kw.update(ssm=dataclasses.replace(
             cfg.ssm, d_state=16, head_dim=16, num_groups=1, chunk=8))
+    if cfg.enc_layers:
+        kw.update(enc_layers=2)
     return cfg.with_(**kw)
 
 

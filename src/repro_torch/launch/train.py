@@ -7,7 +7,8 @@ many slots exist (0 = as many as ``--devices`` and ``--rescale-at`` need),
 
 ``--arch`` takes every config the port builds (``configs.list_archs()``:
 the dense yi-6b, yi-9b, starcoder2-7b, minitron-4b and chameleon-34b, the
-granite-moe-3b-a800m MoE and mamba2-1.3b), each with ``--smoke``.
+granite-moe-3b-a800m MoE, the deepseek-v2-236b MLA + MoE model and
+mamba2-1.3b), each with ``--smoke``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \

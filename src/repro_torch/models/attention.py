@@ -1,9 +1,12 @@
-"""GQA attention mixer (counterpart of the GQA branch of
-``repro.models.attention``, ``qk_norm`` included) in train, prefill and
-decode mode, and its KV cache.  Layout (B,S,H,hd) throughout.
+"""Attention mixers (counterpart of ``repro.models.attention``): GQA
+softmax attention (``qk_norm`` included) and DeepSeek-V2 multi-head latent
+attention (MLA), in train, prefill and decode mode, and their caches.
+Layout (B,S,H,hd) throughout.
 
 The cache is a plain dict of tensors, written in place: prefill writes the
-prompt's keys and values, a decode step the new token's at ``pos``.  Decode
+prompt's entries, a decode step the new token's at ``pos``.  GQA caches keys
+and values; MLA only the compressed per-token latent (``ckv``, after
+``kv_norm``) and the shared rope key (``krope``, after RoPE).  Decode
 assumes one position across the batch (an int ``pos``), as the serving
 CLI's synchronous batched decode does.
 """
@@ -15,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.blocked import blocked_attention
 from repro_torch.models.layers import NEG_INF, apply_rope, rmsnorm
 
 
@@ -79,3 +83,89 @@ def attn_forward(cfg: ModelConfig, p: dict, x, *, positions, mode: str = "train"
             cache["v"][:, :S] = v
         out = ops.flash_attention(q, k, v, causal=True, scale=scale)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> dict:
+    a = cfg.mla
+    return {"ckv": torch.zeros((batch, max_len, a.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((batch, max_len, a.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_forward(cfg: ModelConfig, p: dict, x, *, positions, mode: str = "train",
+                cache: Optional[dict] = None, pos: Optional[int] = None,
+                absorb: bool = False):
+    """x: (B,S,D) -> (y (B,S,D), cache).  Causal multi-head latent attention.
+
+    train and prefill: per-head keys (the nope part from the latent, the
+    shared rope key broadcast over heads) and values are expanded from the
+    latent, linear in S, and attended through the blocked twin with scale
+    ``(nope + rope) ** -0.5``; prefill writes ``ckv`` and ``krope`` into
+    ``cache[:, :S]``.  decode: the new token's latent is written at ``pos``
+    and the queries attend over the cache masked causally from ``pos`` and
+    to its first ``pos + S`` entries.  ``absorb`` (decode only, as in the
+    reference) folds W_UK into the query and takes scores and context
+    against the latent cache itself, without expanding per-head K and V."""
+    a = cfg.mla
+    S = x.shape[1]
+    nope, r = a.qk_nope_head_dim, a.kv_lora_rank
+    if a.q_lora_rank:
+        cq = rmsnorm(torch.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+        q = torch.einsum("bsl,lhk->bshk", cq, p["wq_b"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+
+    ckv_kr = torch.matmul(x, p["wkv_a"])
+    ckv = rmsnorm(ckv_kr[..., :r], p["kv_norm"], cfg.norm_eps)
+    # the shared (single-head) rope key
+    krope = apply_rope(ckv_kr[:, :, None, r:], positions, cfg.rope_theta)[:, :, 0]
+    w_uk, w_uv = p["wkv_b"][..., :nope], p["wkv_b"][..., nope:]
+    scale = (nope + a.qk_rope_head_dim) ** -0.5
+
+    if mode != "decode":
+        if mode == "prefill":
+            cache["ckv"][:, :S] = ckv
+            cache["krope"][:, :S] = krope
+        # each piece is dropped once it is copied into its full form: at
+        # deepseek-v2's width a prefill's expanded q/k/v are 1-2 GB each
+        k_nope = torch.einsum("btl,lhn->bthn", ckv, w_uk)
+        k_full = torch.cat([k_nope, krope[:, :, None].expand(
+            -1, -1, k_nope.shape[2], -1)], dim=-1)
+        del k_nope
+        v_full = torch.einsum("btl,lhv->bthv", ckv, w_uv)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        del q, q_nope, q_rope
+        out = blocked_attention(q_full, k_full, v_full, True, scale)
+        return torch.einsum("bshv,hvd->bsd", out, p["wo"]), cache
+
+    cache["ckv"][:, pos:pos + S] = ckv
+    cache["krope"][:, pos:pos + S] = krope
+    ckv_all, krope_all = cache["ckv"], cache["krope"]
+    if absorb:
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope, w_uk)
+        scores = torch.einsum("bshl,btl->bhst", q_lat, ckv_all)
+    else:
+        k_nope = torch.einsum("btl,lhn->bthn", ckv_all, w_uk)
+        scores = torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+    scores = scores + torch.einsum("bshr,btr->bhst", q_rope, krope_all)
+    scores = scores.float() * scale
+    tpos = torch.arange(ckv_all.shape[1], device=x.device)
+    spos = pos + torch.arange(S, device=x.device)
+    scores = scores.masked_fill((spos[:, None] < tpos[None, :]) | (tpos >= pos + S),
+                                NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    if absorb:
+        ctx_lat = torch.einsum("bhst,btl->bshl", probs, ckv_all)
+        out = torch.einsum("bshl,lhv->bshv", ctx_lat, w_uv)
+    else:
+        v_full = torch.einsum("btl,lhv->bthv", ckv_all, w_uv)
+        out = torch.einsum("bhst,bthv->bshv", probs, v_full)
+    return torch.einsum("bshv,hvd->bsd", out, p["wo"]), cache

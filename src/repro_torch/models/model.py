@@ -19,10 +19,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.checkpoint.reshard import flatten_tree, nest_flat
-from repro_torch.configs.base import (ATTN, SSM, ModelConfig,
+from repro_torch.configs.base import (ATTN, MLA, SSM, ModelConfig,
                                       count_active_params, count_params)
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import init_kv_cache
+from repro_torch.models.attention import init_kv_cache, init_mla_cache
 from repro_torch.models.layers import chunked_softmax_xent, rmsnorm
 from repro_torch.models.moe import balance_loss
 from repro_torch.models.params import (_refuse_unported, from_numpy_flat,
@@ -84,25 +84,39 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, dict]:
 # Serving
 # ---------------------------------------------------------------------------
 
+def _layer_cache(cfg: ModelConfig, i: int, batch: int, max_len: int, dtype,
+                 device) -> dict:
+    mixer = cfg.mixer_at(i)
+    if mixer == ATTN:
+        return {"kv": init_kv_cache(cfg, batch, max_len, dtype, device)}
+    if mixer == MLA:
+        return {"kv": init_mla_cache(cfg, batch, max_len, dtype, device)}
+    if mixer == SSM:
+        return {"ssm": init_ssm_cache(cfg, batch, dtype, device)}
+    raise ValueError(mixer)
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device="cuda") -> dict:
     """A zeroed cache for ``batch`` sequences of up to ``max_len`` tokens:
-    ``{"blocks": {"sub0": {"kv": {"k", "v"}} | {"ssm": {"conv", "h"}}}}``,
-    each leaf with a leading layer axis; ``h`` is float32, the rest
-    ``dtype`` (the model's by default)."""
+    ``{"prefix": {"layer{i}": layer cache}, "blocks": {"sub0": layer cache
+    with a leading layer axis}}``, each part present where the model has
+    such layers; a layer cache is ``{"kv": {"k", "v"}}`` (GQA),
+    ``{"kv": {"ckv", "krope"}}`` (MLA) or ``{"ssm": {"conv", "h"}}``; ``h``
+    is float32, the rest ``dtype`` (the model's by default)."""
     _refuse_unported(cfg)
-    _, n = cfg.scan_layers()
+    prefix, n = cfg.scan_layers()
     dtype = dtype or getattr(torch, cfg.dtype)
-    mixer = cfg.mixer_at(0)
-    if mixer == ATTN:
-        layer = {"kv": init_kv_cache(cfg, batch, max_len, dtype, device)}
-    elif mixer == SSM:
-        layer = {"ssm": init_ssm_cache(cfg, batch, dtype, device)}
-    else:
-        raise ValueError(mixer)
-    stacked = {k: t.expand(n, *t.shape).contiguous()
-               for k, t in flatten_tree(layer).items()}
-    return {"blocks": {"sub0": nest_flat(stacked)}}
+    cache = {}
+    if prefix:
+        cache["prefix"] = {f"layer{i}": _layer_cache(cfg, i, batch, max_len, dtype, device)
+                           for i in range(prefix)}
+    if n:
+        layer = _layer_cache(cfg, prefix, batch, max_len, dtype, device)
+        stacked = {k: t.expand(n, *t.shape).contiguous()
+                   for k, t in flatten_tree(layer).items()}
+        cache["blocks"] = {"sub0": nest_flat(stacked)}
+    return cache
 
 
 @torch.inference_mode()
@@ -144,15 +158,18 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
 @torch.inference_mode()
 def pad_cache(cfg: ModelConfig, cache, prompt_len: int, max_len: int):
     """Grow prefill KV caches (sequence axis == prompt_len) to the serving
-    window.  Only leaves under a ``kv`` key are padded, on axis 2 (axis 0 is
-    the stacked layers: (layers, B, S, KV, hd)); SSM states and conv
-    windows are returned as they are."""
+    window, as the reference does: only leaves under a ``kv`` key are padded,
+    at the end of the sequence axis, which is 2 under ``blocks`` (axis 0 is
+    the stacked layers) and 1 elsewhere (the prefix layers), whatever the
+    leaf's rank; SSM states and conv windows are returned as they are."""
     if max_len == prompt_len:
         return cache
     flat = flatten_tree(cache)
     for key, t in flat.items():
-        if "kv" in key.split("/") and t.shape[2] == prompt_len:
-            flat[key] = F.pad(t, (0, 0, 0, 0, 0, max_len - prompt_len))
+        names = key.split("/")
+        axis = 2 if "blocks" in names else 1
+        if "kv" in names and t.shape[axis] == prompt_len:
+            flat[key] = F.pad(t, (0, 0) * (t.dim() - 1 - axis) + (0, max_len - prompt_len))
     return nest_flat(flat)
 
 

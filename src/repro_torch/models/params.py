@@ -1,6 +1,8 @@
 """Parameter specs and initialisation (counterpart of
 ``repro.models.params`` for the decoders the port builds: GQA attention with
-or without ``qk_norm``, SwiGLU, GELU, squared-ReLU or MoE FFNs, and Mamba-2).
+or without ``qk_norm``, DeepSeek-V2 MLA, SwiGLU, GELU, squared-ReLU or MoE
+FFNs, and Mamba-2; the ``first_dense`` prefix layers unstacked at
+``decoder/prefix/layer{i}`` beside the stacked ``decoder/blocks/sub0``).
 
 Shapes and the ``/``-joined flat keys equal
 ``repro.checkpoint.reshard.flatten_tree(repro.models.params.init_params(cfg,
@@ -23,7 +25,7 @@ from repro_torch.checkpoint.reshard import (host_tensor, nest_flat,
                                             snapshot_to_host,
                                             tree_path_keys, unflatten_tree)
 from repro_torch.configs.base import (ATTN, FF_GELU, FF_MOE, FF_NONE, FF_RELU2,
-                                      FF_SWIGLU, SSM, ModelConfig)
+                                      FF_SWIGLU, MLA, SSM, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models.ssm import _dims
 
@@ -47,6 +49,25 @@ def _attn_specs(cfg: ModelConfig) -> dict:
     if cfg.qk_norm:
         s["q_norm"] = ParamSpec((hd,), "ones")
         s["k_norm"] = ParamSpec((hd,), "ones")
+    return s
+
+
+def _mla_specs(cfg: ModelConfig) -> dict:
+    a, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+    qk_dim = a.qk_nope_head_dim + a.qk_rope_head_dim
+    s = {}
+    if a.q_lora_rank:
+        s["wq_a"] = ParamSpec((d, a.q_lora_rank))
+        s["q_norm"] = ParamSpec((a.q_lora_rank,), "ones")
+        s["wq_b"] = ParamSpec((a.q_lora_rank, h, qk_dim), fan_in=a.q_lora_rank)
+    else:
+        s["wq"] = ParamSpec((d, h, qk_dim))
+    # kv down-projection also produces the shared rope key
+    s["wkv_a"] = ParamSpec((d, a.kv_lora_rank + a.qk_rope_head_dim))
+    s["kv_norm"] = ParamSpec((a.kv_lora_rank,), "ones")
+    s["wkv_b"] = ParamSpec((a.kv_lora_rank, h, a.qk_nope_head_dim + a.v_head_dim),
+                           fan_in=a.kv_lora_rank)
+    s["wo"] = ParamSpec((h, a.v_head_dim, d), fan_in=h * a.v_head_dim)
     return s
 
 
@@ -103,6 +124,8 @@ def _layer_specs(cfg: ModelConfig, i: int) -> dict:
     s = {"mixer_norm": ParamSpec((d,), "ones")}
     if mixer == ATTN:
         s["mixer"] = _attn_specs(cfg)
+    elif mixer == MLA:
+        s["mixer"] = _mla_specs(cfg)
     elif mixer == SSM:
         s["mixer"] = _ssm_specs(cfg)
     else:
@@ -123,12 +146,6 @@ def _stack(tree, n: int):
 
 def _refuse_unported(cfg: ModelConfig) -> None:
     """Layouts whose family is not ported yet, each with its ROADMAP item."""
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-head latent attention waits for ROADMAP A.4(d)")
-    if cfg.scan_layers()[0]:
-        raise NotImplementedError(
-            f"{cfg.name}: prefix layers (first_dense) wait for ROADMAP A.4(d)")
     if cfg.layer_period() != 1:
         raise NotImplementedError(
             f"{cfg.name}: hybrid layer layouts wait for ROADMAP A.4(e)")
@@ -137,14 +154,25 @@ def _refuse_unported(cfg: ModelConfig) -> None:
             f"{cfg.name}: encoder-decoder models wait for ROADMAP A.4(f)")
 
 
+def _decoder_specs(cfg: ModelConfig) -> dict:
+    """The prefix layers unstacked, the rest stacked on a leading layer axis;
+    a depth with no stacked layers has no ``blocks``."""
+    prefix, n = cfg.scan_layers()
+    s = {}
+    if prefix:
+        s["prefix"] = {f"layer{i}": _layer_specs(cfg, i) for i in range(prefix)}
+    if n:
+        s["blocks"] = {"sub0": _stack(_layer_specs(cfg, prefix), n)}
+    return s
+
+
 def param_specs(cfg: ModelConfig) -> dict:
     _refuse_unported(cfg)
-    _, n = cfg.scan_layers()
     d = cfg.d_model
     s = {
         "embed": ParamSpec((cfg.padded_vocab, d), fan_in=d),
         "final_norm": ParamSpec((d,), "ones"),
-        "decoder": {"blocks": {"sub0": _stack(_layer_specs(cfg, 0), n)}},
+        "decoder": _decoder_specs(cfg),
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((d, cfg.padded_vocab))

@@ -1,15 +1,23 @@
 """Decoder stack (counterpart of ``repro.models.transformer``): each layer's
-mixer is attention or the Mamba-2 SSD block, and its FFN dense, MoE or none,
-as ``cfg.mixer_at`` / ``cfg.ff_at`` say.
+mixer is GQA attention, MLA or the Mamba-2 SSD block, and its FFN dense, MoE
+or none, as ``cfg.mixer_at`` / ``cfg.ff_at`` say.
 
-Block parameters are stacked with a leading layer axis
-(``decoder/blocks/sub0/...``) as the reference scans them, and so is the
-serving cache (``blocks/sub0/{kv: {k, v}} | {ssm: {conv, h}}``).  In train
-mode each layer runs under ``torch.utils.checkpoint(use_reentrant=False)``,
-the counterpart of the reference's remat policy "full": only the residual
-stream is kept between layers and the layer is recomputed in the backward.
-Prefill and decode call the layer directly, as the reference's
-``_maybe_remat`` does.
+The ``first_dense`` prefix layers run first, one by one, with unstacked
+parameters (``decoder/prefix/layer{i}/...``) and caches
+(``prefix/layer{i}/kv/{ckv, krope}``); the other layers' parameters are
+stacked with a leading layer axis (``decoder/blocks/sub0/...``) as the
+reference scans them, and so is their serving cache
+(``blocks/sub0/{kv: {k, v} | {ckv, krope}} | {ssm: {conv, h}}``).  A depth
+may have no stacked layers at all.  In train mode each layer, prefix layers
+included, runs under ``torch.utils.checkpoint(use_reentrant=False)``, the
+counterpart of the reference's remat policy "full" (which the reference
+applies to its scanned blocks only): only the residual stream is kept
+between layers and the layer is recomputed in the backward.  Prefill and
+decode call the layer directly, as the reference's ``_maybe_remat`` does.
+
+An MLA layer decodes through the W_UK-absorbed form and trains and
+prefills through the expanded one, as the reference's ``_MLA_ABSORB``
+defaults say (``set_mla_absorb`` changes them).
 
 The layer axis is split once, by ``_split_layers``, for every caller: a
 stacked leaf that takes a gradient gets per-layer leaves whose hooks add
@@ -27,13 +35,20 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, FF_MOE, FF_NONE, SSM, ModelConfig
-from repro_torch.models.attention import attn_forward
+from repro_torch.configs.base import ATTN, FF_MOE, FF_NONE, MLA, SSM, ModelConfig
+from repro_torch.models.attention import attn_forward, mla_forward
 from repro_torch.models.layers import apply_ffn, rmsnorm
 from repro_torch.models.moe import moe_layer
 from repro_torch.models.ssm import ssm_forward
 
 MODES = ("train", "prefill", "decode")
+_MLA_ABSORB = {"decode": True, "prefill": False, "train": False}
+
+
+def set_mla_absorb(mode: str, value: bool):
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
+    _MLA_ABSORB[mode] = value
 
 
 def apply_layer(cfg: ModelConfig, p: dict, x, layer_idx: int, *, positions,
@@ -47,6 +62,10 @@ def apply_layer(cfg: ModelConfig, p: dict, x, layer_idx: int, *, positions,
     if mixer == ATTN:
         y, _ = attn_forward(cfg, p["mixer"], h, positions=positions, mode=mode,
                             cache=cache["kv"] if cache else None, pos=pos)
+    elif mixer == MLA:
+        y, _ = mla_forward(cfg, p["mixer"], h, positions=positions, mode=mode,
+                           cache=cache["kv"] if cache else None, pos=pos,
+                           absorb=_MLA_ABSORB[mode])
     elif mixer == SSM:
         y, _ = ssm_forward(cfg, p["mixer"], h, mode=mode,
                            cache=cache["ssm"] if cache else None)
@@ -106,19 +125,23 @@ def _split_layers(tree, n: int):
 def decoder(cfg: ModelConfig, dparams: dict, x, *, positions, mode: str = "train",
             cache: Optional[dict] = None, pos: Optional[int] = None):
     """(x, cache, [(psum, counts) of each MoE layer]).  Prefill and decode
-    take the stacked cache (``model.make_cache``) and write it in place."""
+    take the cache of ``model.make_cache`` and write it in place."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     prefix, n = cfg.scan_layers()
+    layers = [(i, dparams["prefix"][f"layer{i}"],
+               cache["prefix"][f"layer{i}"] if cache else None) for i in range(prefix)]
+    if n:
+        caches = _split_layers(cache["blocks"]["sub0"], n) if cache else [None] * n
+        layers += [(prefix, lp, c) for lp, c in
+                   zip(_split_layers(dparams["blocks"]["sub0"], n), caches)]
     moe_stats = []
-    layers = _split_layers(dparams["blocks"]["sub0"], n)
-    caches = _split_layers(cache["blocks"]["sub0"], n) if cache else [None] * n
-    for lp, c in zip(layers, caches):
+    for i, lp, c in layers:
         if mode == "train":
-            x, _, stats = checkpoint(apply_layer, cfg, lp, x, prefix,
+            x, _, stats = checkpoint(apply_layer, cfg, lp, x, i,
                                      positions=positions, use_reentrant=False)
         else:
-            x, _, stats = apply_layer(cfg, lp, x, prefix, positions=positions,
+            x, _, stats = apply_layer(cfg, lp, x, i, positions=positions,
                                       mode=mode, cache=c, pos=pos)
         if stats is not None:
             moe_stats.append(stats)

@@ -15,10 +15,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
                                     DiskCheckpointStore, flatten_tree,
                                     restore_from_host, snapshot_to_host)
-from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.configs import ATTN, SSM, smoke_config  # noqa: E402
 from repro_torch.core.elastic import (ElasticTrainer, TrainJobConfig,  # noqa: E402
                                       local_slots)
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.blocked import blocked_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
@@ -406,12 +407,14 @@ def _serve(cfg, params, tokens, prompt, steps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-3b-a800m", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-3b-a800m", "mamba2-1.3b",
+                                  "deepseek-v2-236b"])
 def test_serving_on_card_matches_the_cpu(arch):
     """A prefill of 16 tokens and 4 decode steps at smoke size, on the card
     against the same on the CPU (logits and every cache leaf within 2e-5);
-    on the card a prefill launches its mixer's kernel once a layer and a
-    decode step launches none."""
+    on the card a prefill launches flash attention once a GQA layer and the
+    SSD scan once a Mamba-2 layer (an MLA layer attends through the blocked
+    twin: no launch), and a decode step launches none."""
     dev = _card()
     cfg = smoke_config(arch).with_(dtype="float32")
     params = M.init_params(cfg, 0, device="cpu")
@@ -420,8 +423,9 @@ def test_serving_on_card_matches_the_cpu(arch):
     assert not any(cpu_prefill.values()) and not any(cpu_decode.values())
     card_params = M.from_numpy_flat(M.to_numpy_flat(params), device=dev)
     got, cache, prefill, decode = _serve(cfg, card_params, tokens.to(dev), 16, 4)
-    kernel = "ssd" if cfg.ssm is not None else "flash_attention"
-    assert prefill == {k: cfg.num_layers if k == kernel else 0 for k in prefill}
+    mixers = [cfg.mixer_at(i) for i in range(cfg.num_layers)]
+    launched = {"flash_attention": mixers.count(ATTN), "ssd": mixers.count(SSM)}
+    assert prefill == {k: launched.get(k, 0) for k in prefill}
     assert not any(decode.values())
     for a, b in zip(want, got):
         torch.testing.assert_close(b.cpu(), a, atol=2e-5, rtol=2e-5)
@@ -439,3 +443,58 @@ def test_serving_refuses_a_mamba2_prompt_off_the_chunk_on_card():
     params = M.init_params(cfg, 0, device=dev)
     with pytest.raises(ValueError, match="sequence length 12 is not a multiple of chunk 8"):
         M.prefill(cfg, params, {"tokens": torch.zeros((2, 12), dtype=torch.long, device=dev)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Sk,H,KV,hd,hdv,causal,q_pos0,kv_len,block_k", [
+    (256, 256, 8, 8, 192, 128, True, 0, None, 64),      # MLA's head dims (train, prefill)
+    (100, 100, 6, 2, 64, 64, True, 0, None, 48),        # GQA, tail off the block
+    (32, 80, 4, 4, 24, 16, True, 40, 70, 32),           # a later query, masked tail
+    (32, 48, 4, 4, 16, 24, False, 0, None, 16)])        # non-causal, hdv != hd
+def test_blocked_twin_on_card_matches_the_cpu(Sq, Sk, H, KV, hd, hdv, causal, q_pos0,
+                                              kv_len, block_k):
+    """The blocked-attention twin (plain torch, no kernel) on the card
+    against the CPU: output within 2e-5, every gradient within 5e-4."""
+    dev = _card()
+    rng = np.random.default_rng(Sq)
+    arrays = [rng.standard_normal(shape).astype(np.float32) for shape in
+              ((2, Sq, H, hd), (2, Sk, KV, hd), (2, Sk, KV, hdv), (2, Sq, H, hdv))]
+    out = {}
+    for where in ("cpu", dev):
+        q, k, v, r = (torch.from_numpy(a).to(where) for a in arrays)
+        for t in (q, k, v):
+            t.requires_grad_()
+        y = blocked_attention(q, k, v, causal, None, q_pos0, kv_len, block_k)
+        (y * r).sum().backward()
+        out[str(where)] = [y.detach(), q.grad, k.grad, v.grad]
+    for i, (a, b) in enumerate(zip(out["cpu"], out[str(dev)])):
+        tol = 2e-5 if i == 0 else 5e-4
+        torch.testing.assert_close(b.cpu(), a, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_deepseek_train_step_on_card_matches_the_cpu():
+    """One trainer step of the deepseek smoke model (MLA, the dense prefix
+    layer, stacked MoE layers with shared experts) on the card against the
+    CPU from the same parameters: loss and aux within 2e-5, grad norm within
+    1e-4, every parameter after the update within 1e-4; no kernel launches
+    (the MLA layers attend through the blocked twin)."""
+    dev = _card()
+    cfg = smoke_config("deepseek-v2-236b")
+    job = TrainJobConfig(global_batch=8, seq_len=32, total_steps=4, seed=3)
+    cpu = ElasticTrainer(cfg, job, local_slots(2), device="cpu")
+    card = ElasticTrainer(cfg, job, local_slots(2), device=dev)
+    with torch.no_grad():
+        for k, t in flatten_tree(card.params).items():
+            t.copy_(flatten_tree(cpu.params)[k])
+    before = ops.launch_counts()
+    want, got = cpu.step(), card.step()
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == before
+    assert got["aux"] > 0
+    for k, tol in (("loss", 2e-5), ("aux", 2e-5), ("grad_norm", 1e-4)):
+        assert abs(got[k] - want[k]) <= tol * max(1.0, abs(want[k])), (k, got[k], want[k])
+    want_p, got_p = flatten_tree(cpu.params), flatten_tree(card.params)
+    for k, a in want_p.items():
+        torch.testing.assert_close(got_p[k].detach().cpu(), a.detach(), atol=1e-4,
+                                   rtol=1e-4, msg=k)

@@ -381,7 +381,7 @@ def test_chip_smoke_moe_phase_runs_at_smoke_size_on_the_cpu(capsys):
     """``chip_smoke.py``'s phase 11 with the granite-moe smoke config on the
     CPU: finite losses, aux above 0, the host lane's restored state byte for
     byte its snapshot, no kernel launches."""
-    counts, step_s = chip_smoke.moe_phase(smoke_config(MOE), job=JOB, device="cpu")
+    counts, step_s, _ = chip_smoke.job_phase(smoke_config(MOE), "moe", job=JOB, device="cpu")
     assert counts == {"flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
     assert len(step_s) == 6
     out = capsys.readouterr().out

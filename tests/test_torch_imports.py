@@ -88,6 +88,9 @@ MODEL_MODULES = {
 SERVE_MODULES = {"repro_torch.launch.serve", "repro_torch.utils",
                  "repro_torch.utils.flops"}
 
+# multi-head latent attention: the blocked-attention twin and deepseek-v2
+MLA_MODULES = {"repro_torch.kernels.blocked", "repro_torch.configs.deepseek_v2_236b"}
+
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -95,7 +98,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 74, proc.stdout
+    assert n >= 76, proc.stdout
     names = set(proc.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
     assert OPERATOR_MODULES <= names, sorted(OPERATOR_MODULES - names)
     assert SIMULATOR_MODULES <= names, sorted(SIMULATOR_MODULES - names)
@@ -103,3 +106,4 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert WORKLOAD_MODULES <= names, sorted(WORKLOAD_MODULES - names)
     assert MODEL_MODULES <= names, sorted(MODEL_MODULES - names)
     assert SERVE_MODULES <= names, sorted(SERVE_MODULES - names)
+    assert MLA_MODULES <= names, sorted(MLA_MODULES - names)

@@ -1,9 +1,10 @@
 """The PyTorch port's models against the JAX package on the CPU: the dense
 yi-6b, yi-9b, starcoder2-7b (GELU), minitron-4b (squared ReLU) and
-chameleon-34b (qk_norm) decoders, the granite-moe-3b-a800m MoE and Mamba-2
-mamba2-1.3b: configs, data stream, parameter keys and shapes, parameter
-counts, the init distributions, loss (aux included) and every gradient; and
-the refusal of the layouts whose family is not ported yet.
+chameleon-34b (qk_norm) decoders, the granite-moe-3b-a800m MoE, the
+deepseek-v2-236b MLA + MoE model and Mamba-2 mamba2-1.3b: configs, data
+stream, parameter keys and shapes, parameter counts, the init
+distributions, loss (aux included) and every gradient; and the refusal of
+the layouts whose family is not ported yet.
 
 The JAX smoke parameters are carried across with ``from_numpy_flat``;
 tolerances are the reference's (loss 2e-5, gradients 1e-4)."""
@@ -35,7 +36,7 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 ARCHS = ["yi-6b", "mamba2-1.3b", "granite-moe-3b-a800m", "yi-9b", "starcoder2-7b",
-         "minitron-4b", "chameleon-34b"]
+         "minitron-4b", "chameleon-34b", "deepseek-v2-236b"]
 FIELDS = ("name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
           "d_ff", "vocab_size", "resolved_head_dim", "padded_vocab", "rope_theta",
           "norm_eps", "ff_kind", "dtype", "vocab_pad_to", "default_mixer",
@@ -47,7 +48,12 @@ FULL_SIZE = {"granite-moe-3b-a800m": (3_299_182_080, 881_690_112),
              "yi-9b": (8_829_407_232, 8_829_407_232),
              "starcoder2-7b": (7_399_051_776, 7_399_051_776),
              "minitron-4b": (4_190_309_376, 4_190_309_376),
-             "chameleon-34b": (34_293_436_416, 34_293_436_416)}
+             "chameleon-34b": (34_293_436_416, 34_293_436_416),
+             "deepseek-v2-236b": (235_741_434_880, 21_329_280_000)}
+# deepseek-v2-236b at full width cut in depth: (layers, parameters, active)
+DEEPSEEK_DEPTHS = [(1, 1_386_562_560, 1_386_562_560),       # the dense prefix layer
+                   (2, 5_358_679_040, 1_724_574_720),
+                   (4, 13_302_912_000, 2_400_599_040)]
 
 
 def _port_config(jcfg):
@@ -113,18 +119,33 @@ def test_full_size_param_counts_equal_reference(arch):
         jax.eval_shape(lambda: JM.init_params(jcfg, jax.random.PRNGKey(0)))).items()}
 
 
-@pytest.mark.parametrize("arch,mla,item", [
-    ("jamba-v0.1-52b", True, "A.4(e)"),              # hybrid: attention every 8th layer
-    ("deepseek-v2-236b", True, "A.4(d)"),            # multi-head latent attention
-    ("deepseek-v2-236b", False, "A.4(d)"),           # its first_dense prefix layer
-    ("seamless-m4t-large-v2", True, "A.4(f)")])      # encoder-decoder
-def test_unported_layouts_are_refused_with_their_roadmap_item(arch, mla, item):
+@pytest.mark.parametrize("arch,item", [
+    ("jamba-v0.1-52b", "A.4(e)"),              # hybrid: attention every 8th layer
+    ("seamless-m4t-large-v2", "A.4(f)")])      # encoder-decoder
+def test_unported_layouts_are_refused_with_their_roadmap_item(arch, item):
     cfg = _port_config(jget_config(arch))
-    cfg = cfg if mla else cfg.with_(mla=None)
     with pytest.raises(NotImplementedError, match=re.escape(item)):
         M.param_specs(cfg)
     with pytest.raises(NotImplementedError):
         M.init_params(cfg, 0, device="cpu")
+
+
+@pytest.mark.parametrize("layers,total,active", DEEPSEEK_DEPTHS)
+def test_deepseek_param_counts_at_full_width_cut_in_depth(layers, total, active):
+    cfg = get_config("deepseek-v2-236b").with_(num_layers=layers)
+    jcfg = jget_config("deepseek-v2-236b").with_(num_layers=layers)
+    assert M.param_count(cfg) == jcount_params(jcfg) == total
+    assert M.count_active_params(cfg) == jcount_active(jcfg) == active
+    assert cfg.scan_layers() == (1, layers - 1)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("layers_per_period", [1, 2])
+def test_smoke_config_equals_the_references_field_for_field(arch, layers_per_period):
+    ours = smoke_config(arch, layers_per_period=layers_per_period)
+    ref = jsmoke_config(arch, layers_per_period=layers_per_period)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.scan_layers() == ref.scan_layers()
 
 
 def test_full_width_depth4_param_count():
