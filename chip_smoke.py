@@ -21,7 +21,9 @@ without a CUDA device the script exits non-zero before printing a result:
    (of_bound = bound / kernel) and the achieved TFLOP/s; for the SSD scan,
    the device ms of each of its three launches (torch.profiler); flash
    attention and the parameters' pack also at phase 11's granite-moe shapes,
-   flash attention and the SSD scan also at phase 12's prefill shapes;
+   flash attention and the SSD scan also at phase 12's prefill shapes and
+   at phase 14's jamba prefill (group 4; 128 SSM heads of d_state 16), the
+   pack at phases 13's and 14's training snapshots;
 4. the main paths, each an ElasticTrainer at global batch 8 x 2048 on 4
    logical replicas, stepped, shrunk to 2 on the host lane, stepped,
    expanded to 4 on the p2p lane, stepped; launch counts are zeroed just
@@ -31,10 +33,12 @@ without a CUDA device the script exits non-zero before printing a result:
    full published size (48 layers, 1,344,052,224 parameters);
 5. a static vs rescaled trajectory check at depth 1, for each path and for
    granite-moe-3b-a800m (whose load-balance loss is the global batch's at
-   every replica count) and deepseek-v2-236b (its dense MLA prefix layer);
+   every replica count), deepseek-v2-236b (its dense MLA prefix layer) and
+   jamba-v0.1-52b (its layer 0: Mamba-2 and a dense SwiGLU);
 6. ``repro_torch.launch.train --smoke`` on the card with ``--rescale-at``,
    ``--checkpoint-dir`` and ``--restart``, for each arch the port builds
-   (SwiGLU, GELU, squared ReLU, qk_norm, MoE, MLA and Mamba-2);
+   (SwiGLU, GELU, squared ReLU, qk_norm, MoE, MLA, Mamba-2 and jamba's
+   hybrid block);
 7. the live operator (``ElasticClusterController``) at full width, with
    the launch counts zeroed before the phase and read after it: scenario A
    (priority shrink and expand-back of two yi-6b depth-4 jobs on 8 logical
@@ -103,7 +107,7 @@ without a CUDA device the script exits non-zero before printing a result:
     (``torch.profiler``), peak memory, and the decode logits held to the
     training forward's at the generated positions (teacher forcing); then
     ``python -m repro_torch.launch.serve --smoke`` on the card for yi-6b,
-    granite-moe-3b-a800m, mamba2-1.3b and deepseek-v2-236b;
+    granite-moe-3b-a800m, mamba2-1.3b, deepseek-v2-236b and jamba-v0.1-52b;
 13. multi-head latent attention, ``[mla]`` lines: deepseek-v2-236b at its
     full published width (d_model 5120, 128 heads, q/kv lora 1536/512,
     qk 128+64, v 128, 160 routed experts top-6 and 2 shared of 1536, vocab
@@ -120,8 +124,25 @@ without a CUDA device the script exits non-zero before printing a result:
     times against the reference FLOPs and the byte bound, idle shares,
     peak memory, no kernel launch; its first decode step also through the
     unabsorbed form from the same cache, the logits held together within
-    ``SERVE_TF_TOL`` scaled.  (c) Teacher forcing at full width under the
-    dense MoE: one prompt of 32 tokens, 16 decode steps.
+    ``SERVE_TF_TOL`` scaled, peak memory under ``SERVE_PEAK``.  (c) Teacher
+    forcing at full width under the dense MoE: one prompt of 32 tokens, 16
+    decode steps;
+14. the hybrid layout, ``[hybrid]`` lines: jamba-v0.1-52b at its full
+    published width (d_model 4096, 32 heads with 8 KV heads of 128, d_ff
+    14,336, 16 experts top-2 of 14,336, Mamba-2 of d_state 16 and head dim
+    64 in 128 heads, vocab 65,536), in period-8 blocks: Mamba-2 mixers with
+    attention at sub3, MoE on the odd subs, dense SwiGLU on the even ones.
+    (a) Its training job cut to depth 1, layer 0 alone (the Mamba-2 mixer
+    and a dense SwiGLU, 814,412,320 parameters), through phase 4's sequence
+    as phase 13(a) runs deepseek's: every loss finite, the first near ln
+    65536, aux 0, the SSD scan twice a replica-step (40), no flash launch,
+    the pack {float32: 2, int32: 1}, the restore byte-exact, the profile
+    and the arch model beside the step.  (b) Served at depth 8, one whole
+    period (13,267,656,416 parameters, 53.07 GB in float32), at phase 12's
+    sizes: flash once and the SSD scan 7 times a prefill, none a decode
+    step, prefill and decode against the reference FLOPs and the byte
+    bound, idle shares, peak memory under ``SERVE_PEAK``.  (c) Teacher
+    forcing at full width under the dense MoE, as phase 13(c).
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
@@ -137,7 +158,11 @@ attention and the parameters' pack at phase 11's shapes, on its path
 ``granite-moe-3b-a800m``; ``flash_attention_serve`` and ``ssd_serve`` are
 the two kernels at phase 12's prefill shapes (batch 8), on its paths
 ``yi-6b-serve`` and ``mamba2-1.3b-serve``; ``pack_deepseek`` is the pack of
-phase 13's host-lane snapshot, on its path ``deepseek-v2-236b``.
+phase 13's host-lane snapshot, on its path ``deepseek-v2-236b``;
+``flash_attention_jamba`` and ``ssd_jamba`` are the two kernels at phase
+14's prefill shapes, on its path ``jamba-v0.1-52b-serve``, and
+``pack_jamba`` is the pack of phase 14's training snapshot, on its path
+``jamba-v0.1-52b``.
 """
 import contextlib
 import dataclasses
@@ -182,6 +207,7 @@ from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.moe import set_moe_impl  # noqa: E402
 from repro_torch.models.transformer import set_mla_absorb  # noqa: E402
 from repro_torch.obs import (SimProfiler, Tracer, build_span_graph,  # noqa: E402
@@ -284,7 +310,7 @@ MOE_JOB = dict(MAIN_JOB, peak_lr=OPERATOR_JOB["peak_lr"])
 CARD_MEMORY = 80e9
 # the archs whose CLI smoke runs in phase 6 besides phase 4's paths
 CLI_ARCHS = ("granite-moe-3b-a800m", "yi-9b", "starcoder2-7b", "minitron-4b",
-             "chameleon-34b", "deepseek-v2-236b")
+             "chameleon-34b", "deepseek-v2-236b", "jamba-v0.1-52b")
 # phase 12: serving at full published size in float32 (the reference's
 # serve CLI forces it): a batch of 8 prompts of 2048 tokens, 64 generated
 # tokens (63 decode steps); the decode logits are held to the training
@@ -309,7 +335,22 @@ DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_PARAMS = 1, 1_386_562_560
 DEEPSEEK_SERVE_LAYERS, DEEPSEEK_SERVE_PARAMS = 4, 13_302_912_000
 FIRST_LOSS_TOL = 1.0
 MLA_TF = dict(batch=1, prompt=32, gen=17)
-SERVE_CLI_ARCHS = ("yi-6b", GRANITE, "mamba2-1.3b", DEEPSEEK)
+# phases 13 and 14 serve a model of about 53 GB of float32 weights; its
+# transient peak (the MoE dispatch's expert activations at capacity 1.25)
+# must leave 4 GB of the card's 80 free
+SERVE_PEAK = 76e9
+# phase 14: jamba-v0.1-52b at its full published width, in period-8 blocks.
+# It trains at depth 1, layer 0 alone (814,412,320 parameters, 13.0 GB of
+# float32 AdamW state; at depth 2, 3,734,426,688 parameters, the state is
+# 59.8 GB and the host-lane snapshot packs a 29.9 GB moments group into one
+# device buffer beside it), at phase 4's batch and replicas and the
+# operator's peak rate; it serves one whole period at depth 8
+# (13,267,656,416 parameters, 53.07 GB in float32) at phase 12's sizes, and
+# teacher forcing runs as phase 13's
+JAMBA = "jamba-v0.1-52b"
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_PARAMS = 1, 814_412_320
+JAMBA_SERVE_LAYERS, JAMBA_SERVE_PARAMS = 8, 13_267_656_416
+SERVE_CLI_ARCHS = ("yi-6b", GRANITE, "mamba2-1.3b", DEEPSEEK, JAMBA)
 
 
 def serve_path(arch):
@@ -317,16 +358,22 @@ def serve_path(arch):
 
 
 # flash attention's phase-3 cases: (record, path, dtype, one replica's shard
-# at R=4, or phase 12's prefill batch, as (B, S, H, KV, head_dim))
+# at R=4, or phase 12's or 14's prefill batch, as (B, S, H, KV, head_dim))
 FLASH_CASES = (("flash_attention", "yi-6b", torch.float32, (2, 2048, 32, 4, 128)),
                ("flash_attention_bf16", BF16_PATH, torch.bfloat16, (2, 2048, 32, 4, 128)),
                ("flash_attention_granite", GRANITE, torch.float32, (2, 2048, 24, 8, 64)),
                ("flash_attention_serve", serve_path("yi-6b"), torch.float32,
-                (8, 2048, 32, 4, 128)))
-# the SSD scan's phase-3 cases: (record, path, dtype, batch): one replica's
-# shard at R=4 (L2048 H64 P64 G1 N128, chunk 128), and phase 12's prefill
-SSD_CASES = (("ssd", "mamba2-1.3b", torch.float32, 2), ("ssd_bf16", None, torch.bfloat16, 2),
-             ("ssd_serve", serve_path("mamba2-1.3b"), torch.float32, 8))
+                (8, 2048, 32, 4, 128)),
+               ("flash_attention_jamba", serve_path(JAMBA), torch.float32,
+                (8, 2048, 32, 8, 128)))
+# the SSD scan's phase-3 cases: (record, path, dtype, (B, L, H, P, G, N,
+# chunk)): one replica's shard of mamba2-1.3b at R=4, phase 12's prefill,
+# and phase 14's jamba prefill (128 heads, d_state 16)
+MAMBA2_SSD = (2048, 64, 64, 1, 128, 128)
+SSD_CASES = (("ssd", "mamba2-1.3b", torch.float32, (2, *MAMBA2_SSD)),
+             ("ssd_bf16", None, torch.bfloat16, (2, *MAMBA2_SSD)),
+             ("ssd_serve", serve_path("mamba2-1.3b"), torch.float32, (8, *MAMBA2_SSD)),
+             ("ssd_jamba", serve_path(JAMBA), torch.float32, (8, 2048, 128, 64, 1, 16, 128)))
 
 
 def check(cond, msg):
@@ -580,9 +627,8 @@ def _ssd_err(out, exp, tol):
 
 
 def check_ssd(gen):
-    L, H, P, G, N, Q = 2048, 64, 64, 1, 128, 128
     recs = []
-    for name, path, dtype, B in SSD_CASES:
+    for name, path, dtype, (B, L, H, P, G, N, Q) in SSD_CASES:
         args = _ssd_inputs(gen, B, L, H, P, G, N, dtype)
         y = ssd_scan_fwd(*args, chunk=Q)
         err, frac = _ssd_err(y, ref.ssd_chunked_ref(*args, chunk=Q), SSD_TOL[dtype])
@@ -596,8 +642,10 @@ def check_ssd(gen):
             phases_device_ms=json.dumps({k: round(v, 4) for k, v in phases.items()}
                                         ).replace(" ", ""))
         plain = time_ms(lambda: ref.ssd_chunked_ref(*args, chunk=Q), 3, warmup=1)
-        pairs = Q * (Q + 1) // 2                         # causal pairs only
-        flops = B * H * (L // Q) * (2 * pairs * (N + P) + 4 * Q * N * P)
+        # causal pairs only; the C.B^T scores once a group (its heads share
+        # them), then a head's masked scores times x and its state terms
+        pairs = Q * (Q + 1) // 2
+        flops = B * (L // Q) * (G * 2 * pairs * N + H * (2 * pairs * P + 4 * Q * N * P))
         b_ms, b_by = bound(nbytes(*args, y), flops, dtype)
         recs.append(record(
             name, "ssd", path, dtype, "src/repro_torch/csrc/ssd_scan.cu",
@@ -612,6 +660,7 @@ def check_ssd(gen):
     # long memory: dt about 0.004 (the low end of Mamba-2's dt init), so
     # dt*A sums to a few units over a chunk and the state carried from
     # earlier chunks makes up about half of y (by norm, past the first chunk)
+    L, H, P, G, N, Q = MAMBA2_SSD
     for dtype in (torch.float32, torch.bfloat16):
         args = _ssd_inputs(gen, 2, L, H, P, G, N, dtype, dt_shift=-6.0)
         err, frac = _ssd_err(ssd_scan_fwd(*args, chunk=Q),
@@ -766,8 +815,14 @@ def trajectory(arch):
     lb = [m["loss"] for m in el.metrics_log]
     lerr = max(abs(a - b) for a, b in zip(la, lb))
     fa, fb = flatten_tree(static.params), flatten_tree(el.params)
-    perr = max(float((fa[k] - fb[k]).detach().abs().max()) for k in fa)
+    errs = {k: float((fa[k] - fb[k]).detach().abs().max()) for k in fa}
+    leaf = max(errs, key=errs.get)                  # the leaf that sets the error
+    perr = errs[leaf]
+    at = np.unravel_index(int((fa[leaf] - fb[leaf]).detach().abs().argmax()),
+                          tuple(fa[leaf].shape))
     say("trajectory", arch=arch, depth=1, loss_err=lerr, param_err=perr,
+        param_err_leaf=leaf, param_err_at=list(map(int, at)),
+        static_value=float(fa[leaf][at]), rescaled_value=float(fb[leaf][at]),
         loss_tol=TRAJ_LOSS_TOL, param_tol=TRAJ_PARAM_TOL,
         paths=[r.path for r in timings], loss_first=la[0], loss_last=la[-1])
     check(lerr <= TRAJ_LOSS_TOL, f"trajectory loss err {lerr}")
@@ -1575,6 +1630,13 @@ def cloud_phase(card, trace_dir):
 
 # -- phase 11 ------------------------------------------------------------------------
 
+def mixer_layers(cfg):
+    """{kernel: the layers of ``cfg`` whose mixer launches it}: flash
+    attention a GQA layer's, the SSD scan a Mamba-2 layer's."""
+    return {kernel: sum(cfg.mixer_at(i) == mixer for i in range(cfg.num_layers))
+            for kernel, mixer in (("flash_attention", ATTN), ("ssd", SSM))}
+
+
 @contextlib.contextmanager
 def kept_restores():
     """While open, each host snapshot that a trainer restores from
@@ -1612,15 +1674,16 @@ def host_memory():
 def job_phase(cfg, tag, job=MOE_JOB, device="cuda", reduced="none"):
     """An ``ElasticTrainer`` of ``cfg`` at full width through phase 4's
     sequence, logged under ``tag``, launch counts zeroed before and read
-    after: phase 11 (granite-moe-3b-a800m) and phase 13's training job
-    (deepseek-v2-236b at depth 1).  Pinned host blocks cached by earlier
-    phases are released first: a snapshot needs tens of GB of them.  Every
-    loss and aux finite (aux above 0 where the model has MoE layers, 0
-    where it has none), flash attention launched twice a GQA layer and
-    replica-step (forward and recompute), the pack kernel once a dtype
-    group of the one host-lane snapshot (float32 parameters, float32
-    moments, the int32 count), and the state restored on the host lane
-    byte for byte the snapshot it was restored from.  Returns (launch
+    after: phase 11 (granite-moe-3b-a800m) and the training jobs of phases
+    13 and 14 (deepseek-v2-236b and jamba-v0.1-52b at depth 1).  Pinned
+    host blocks cached by earlier phases are released first: a snapshot
+    needs tens of GB of them.  Every loss and aux finite (aux above 0 where
+    the model has MoE layers, 0 where it has none), flash attention
+    launched twice a GQA layer and replica-step (forward and recompute),
+    the SSD scan twice a Mamba-2 layer and replica-step, the pack kernel
+    once a dtype group of the one host-lane snapshot (float32 parameters,
+    float32 moments, the int32 count), and the state restored on the host
+    lane byte for byte the snapshot it was restored from.  Returns (launch
     counts by dtype, step seconds, losses).  ``reduced`` says how the
     config was cut from its published size."""
     t_phase = time.perf_counter()
@@ -1662,8 +1725,8 @@ def job_phase(cfg, tag, job=MOE_JOB, device="cuda", reduced="none"):
           f"{tag}: paths {[r.path for r in timings]}")
     for r in timings:
         say(tag, rescale=r.path, **{k: f"{v:.4f}" for k, v in r.as_dict().items()})
-    gqa_layers = sum(cfg.mixer_at(i) == ATTN for i in range(cfg.num_layers))
-    expected = 2 * gqa_layers * sum(MAIN_REPLICAS) if on_card else 0
+    expected = {kernel: 2 * n * sum(MAIN_REPLICAS) if on_card else 0
+                for kernel, n in mixer_layers(cfg).items()}
     expected_pack = {"float32": 2, "int32": 1} if on_card else {}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     say(tag, arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
@@ -1672,10 +1735,10 @@ def job_phase(cfg, tag, job=MOE_JOB, device="cuda", reduced="none"):
         tokens_per_s=f"{job['global_batch'] * job['seq_len'] / min(step_s):.0f}",
         peak_gb=f"{peak / 1e9:.2f}", **host_memory(), launches=json.dumps(counts),
         pack_launches=json.dumps(by_dtype["pack"]).replace(" ", ""),
-        expected_flash_attention=expected,
+        **{f"expected_{k}": n for k, n in expected.items()},
         expected_pack=json.dumps(expected_pack).replace(" ", ""))
-    check(counts["flash_attention"] == expected,
-          f"{tag}: flash launches {counts['flash_attention']} != {expected}")
+    for kernel, n in expected.items():
+        check(counts[kernel] == n, f"{tag}: {kernel} launches {counts[kernel]} != {n}")
     check(by_dtype["pack"] == expected_pack,
           f"{tag}: pack launches {by_dtype['pack']} != {expected_pack}")
     check(peak < CARD_MEMORY, f"{tag}: peak memory {peak / 1e9:.2f} GB")
@@ -1692,16 +1755,44 @@ def job_phase(cfg, tag, job=MOE_JOB, device="cuda", reduced="none"):
 
 # -- phase 12 ------------------------------------------------------------------------
 
-def decode_step_bytes(cfg, params, cache, batch, ctx):
+@contextlib.contextmanager
+def routed_experts():
+    """While open, each MoE layer call's per-expert assignment counts (the
+    ``balance_stats`` counts ``moe_layer`` already returns, so no launch is
+    added) are appended, in call order, to the list this yields."""
+    seen = []
+    layer = tfm.moe_layer
+
+    def keep(cfg, p, x):
+        y, stats = layer(cfg, p, x)
+        seen.append(stats[1])
+        return y, stats
+    tfm.moe_layer = keep
+    try:
+        yield seen
+    finally:
+        tfm.moe_layer = layer
+
+
+def decode_step_bytes(cfg, params, cache, batch, ctx, experts):
     """The least bytes a decode step with ``ctx`` tokens in the cache moves:
-    every weight read once (an untied embedding table only for the rows it
-    gathers), the cache entries (keys and values, or MLA's latent and rope
+    every weight read once, except an untied embedding table (only the rows
+    it gathers) and the routed experts (only the ``experts`` (layer, expert)
+    pairs the step's routing selected; every MoE layer has the same
+    widths); the cache entries (keys and values, or MLA's latent and rope
     key) of ``ctx + 1`` positions a layer read and the new position's
     written, or the SSM conv window and state read and written."""
-    w = nbytes(*flatten_tree(params).values())
+    flat = flatten_tree(params)
+    w = nbytes(*flat.values())
     if not cfg.tie_embeddings:
         e = params["embed"]
         w -= (e.shape[0] - batch) * e.shape[1] * e.element_size()
+    routed = [t for key, t in flat.items()          # an MoE layer's w_gate/w_up/w_down
+              if key.rsplit("/", 1)[0] + "/router" in flat and not key.endswith("/router")]
+    if routed:
+        moe_layers = sum(cfg.ff_at(i) == FF_MOE for i in range(cfg.num_layers))
+        all_experts = moe_layers * cfg.moe.num_experts
+        w -= nbytes(*routed) * (all_experts - experts) // all_experts
     c = 0
     for key, t in flatten_tree(cache).items():
         if "/kv/" in key:               # (layers, B, window, ...) or, prefix, (B, window, ...)
@@ -1761,10 +1852,7 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     pad_s = time.perf_counter() - t0
     want = {k: {} for k in none}
     if on_card:
-        for kernel, mixer in (("flash_attention", ATTN), ("ssd", SSM)):
-            n = sum(cfg.mixer_at(i) == mixer for i in range(cfg.num_layers))
-            if n:
-                want[kernel] = {"float32": n}
+        want.update({k: {"float32": n} for k, n in mixer_layers(cfg).items() if n})
     check(prefill_counts == want, f"{tag} {cfg.name}: prefill launches {prefill_counts} "
           f"!= {want}")
     check(logits.shape == (batch, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
@@ -1789,12 +1877,13 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
         del unabsorbed, absorbed
         sync()
     t0 = time.perf_counter()
-    for pos in range(prompt, max_len - 1):
-        logits, cache = M.decode_step(cfg, params, cache, toks, pos)
-        toks = logits.argmax(-1, keepdim=True)
-        out.append(toks)
-        step_logits.append(logits)
-    sync()
+    with routed_experts() as routed:
+        for pos in range(prompt, max_len - 1):
+            logits, cache = M.decode_step(cfg, params, cache, toks, pos)
+            toks = logits.argmax(-1, keepdim=True)
+            out.append(toks)
+            step_logits.append(logits)
+        sync()
     decode_s = time.perf_counter() - t0
     decode_counts = ops.launch_counts_by_dtype()
     check(decode_counts == none, f"{tag} {cfg.name}: decode launched {decode_counts}")
@@ -1803,7 +1892,14 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
 
     flops = fwd_flops(cfg, batch, prompt)
     steps = range(prompt, max_len - 1)
-    step_bytes = sum(decode_step_bytes(cfg, params, cache, batch, pos) for pos in steps) / n
+    # the (layer, expert) pairs each step's routing selected
+    moe_layers = sum(cfg.ff_at(i) == FF_MOE for i in range(cfg.num_layers))
+    check(len(routed) == n * moe_layers, f"{tag} {cfg.name}: {len(routed)} MoE calls "
+          f"in {n} decode steps of {moe_layers} MoE layers")
+    chosen = [int((c > 0).sum()) for c in routed]
+    experts = [sum(chosen[i * moe_layers:(i + 1) * moe_layers]) for i in range(n)]
+    step_bytes = sum(decode_step_bytes(cfg, params, cache, batch, pos, e)
+                     for pos, e in zip(steps, experts)) / n
     step_flops = sum(decode_flops(cfg, batch, pos) for pos in steps) / n
     bound_ms = step_bytes / PEAK_BYTES * 1e3
     step_ms = decode_s * 1e3 / n
@@ -1820,6 +1916,8 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
         fp32_peak_share=f"{flops / prefill_s / H100_PEAK_FLOPS_FP32:.4f}",
         decode_ref_flops_per_step=f"{step_flops:.6e}",
         decode_bytes_per_step=f"{step_bytes:.6e}",
+        **({"routed_experts_per_moe_layer": f"{sum(experts) / (n * moe_layers):.4f}"}
+           if moe_layers else {}),
         decode_bound_ms_per_step=f"{bound_ms:.4f}",
         decode_of_bound=f"{bound_ms / step_ms:.4f}", card=json.dumps(card))
     say(tag, arch=cfg.name, prefill_launches=json.dumps(prefill_counts).replace(" ", ""),
@@ -1899,44 +1997,67 @@ def serve_phase(card):
     return counts
 
 
-# -- phase 13 ------------------------------------------------------------------------
+# -- phases 13 and 14 ---------------------------------------------------------------
 
-def mla_phase(card, device="cuda", train_cfg=None, serve_cfg=None, job=MOE_JOB,
-              serve=SERVE, tf=MLA_TF):
-    """Phase 13, ``[mla]`` lines: deepseek-v2-236b's training job at depth 1
-    through phase 4's sequence (``job_phase``; its first loss held near
-    ln V), the arch model beside its steady step; then served with 3 MoE
-    layers (``serve_model``, decode absorbed, checked against the
-    unabsorbed form on its first step); then teacher forcing under the
-    dense MoE (at batch 1, with the absorbed check again).  The configs and sizes default to the card's; the CPU tests
-    pass smoke ones.  Returns (the training job's launch counts by dtype,
-    the serving prefill's)."""
+def full_width_phase(arch, tag, card, train_layers, serve_layers, device="cuda",
+                     train_cfg=None, serve_cfg=None, job=MOE_JOB, serve=SERVE, tf=MLA_TF):
+    """A model at its full published width, cut in depth, logged under
+    ``tag``: its training job at ``train_layers`` through phase 4's sequence
+    (``job_phase``; its first loss held near ln V), the arch model beside
+    its steady step; then served at ``serve_layers`` (``serve_model``), its
+    peak memory held under ``SERVE_PEAK``; then teacher forcing under the
+    dense MoE (at batch 1).  The configs and sizes default to the card's;
+    the CPU tests pass smoke ones.  Returns (the training job's launch
+    counts by dtype, the serving prefill's)."""
     t_phase = time.perf_counter()
-    full = get_config(DEEPSEEK)
-    train_cfg = train_cfg or full.with_(num_layers=DEEPSEEK_TRAIN_LAYERS)
-    serve_cfg = serve_cfg or full.with_(num_layers=DEEPSEEK_SERVE_LAYERS, dtype="float32")
+    on_card = torch.device(device).type == "cuda"
+    full = get_config(arch)
+    train_cfg = train_cfg or full.with_(num_layers=train_layers)
+    serve_cfg = serve_cfg or full.with_(num_layers=serve_layers, dtype="float32")
     cut = f"depth:{{}}/{full.num_layers}"
     train_counts, step_s, losses = job_phase(
-        train_cfg, "mla", job=job, device=device,
+        train_cfg, tag, job=job, device=device,
         reduced=cut.format(train_cfg.num_layers))
     ln_v = math.log(train_cfg.vocab_size)
-    say("mla", arch=train_cfg.name, first_loss=losses[0], ln_vocab=ln_v,
+    say(tag, arch=train_cfg.name, first_loss=losses[0], ln_vocab=ln_v,
         first_loss_minus_ln_vocab=losses[0] - ln_v, tol=FIRST_LOSS_TOL)
     check(abs(losses[0] - ln_v) <= FIRST_LOSS_TOL,
-          f"mla: first loss {losses[0]} is not near ln V = {ln_v}")
-    if torch.device(device).type == "cuda":
-        arch_vs_card(train_cfg, step_s, card, tag="mla")
-    serve_counts = serve_model(serve_cfg, card, device=device, tag="mla", forced=False,
+          f"{tag}: first loss {losses[0]} is not near ln V = {ln_v}")
+    if on_card:
+        arch_vs_card(train_cfg, step_s, card, tag=tag)
+    serve_counts = serve_model(serve_cfg, card, device=device, tag=tag, forced=False,
                                reduced=cut.format(serve_cfg.num_layers),
                                **{k: serve[k] for k in ("batch", "prompt", "gen")})
+    if on_card:         # serve_model reset the peak before its prefill
+        peak = torch.cuda.max_memory_allocated()
+        say(tag, arch=serve_cfg.name, serve_peak_gb=f"{peak / 1e9:.2f}",
+            limit_gb=f"{SERVE_PEAK / 1e9:.0f}")
+        check(peak < SERVE_PEAK, f"{tag}: serving peak {peak / 1e9:.2f} GB")
     set_moe_impl("dense")
     try:
-        serve_model(serve_cfg, card, device=device, tag="mla",
+        serve_model(serve_cfg, card, device=device, tag=tag,
                     reduced=cut.format(serve_cfg.num_layers), **tf)
     finally:
         set_moe_impl("gather")
-    say("mla", seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
+    say(tag, seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
     return train_counts, serve_counts
+
+
+def mla_phase(card, **kw):
+    """Phase 13, ``[mla]`` lines: deepseek-v2-236b trained at depth 1 (the
+    dense MLA prefix layer), served with 3 MoE layers (decode absorbed,
+    checked against the unabsorbed form on its first step)."""
+    return full_width_phase(DEEPSEEK, "mla", card, DEEPSEEK_TRAIN_LAYERS,
+                            DEEPSEEK_SERVE_LAYERS, **kw)
+
+
+def hybrid_phase(card, **kw):
+    """Phase 14, ``[hybrid]`` lines: jamba-v0.1-52b trained at depth 1
+    (layer 0: Mamba-2 and a dense SwiGLU), served at depth 8, one whole
+    period (Mamba-2 and attention mixers, MoE and dense FFNs, the hybrid
+    cache)."""
+    return full_width_phase(JAMBA, "hybrid", card, JAMBA_TRAIN_LAYERS,
+                            JAMBA_SERVE_LAYERS, **kw)
 
 
 def main():
@@ -1961,11 +2082,13 @@ def main():
           == (GRANITE_PARAMS, GRANITE_ACTIVE_PARAMS),
           f"{GRANITE} has {M.param_count(granite)} parameters, "
           f"{M.count_active_params(granite)} active")
-    deepseek = get_config(DEEPSEEK)
-    for layers, n in ((DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_PARAMS),
-                      (DEEPSEEK_SERVE_LAYERS, DEEPSEEK_SERVE_PARAMS)):
-        got = M.param_count(deepseek.with_(num_layers=layers))
-        check(got == n, f"{DEEPSEEK} at depth {layers} has {got} parameters, not {n}")
+    deepseek, jamba = get_config(DEEPSEEK), get_config(JAMBA)
+    for cfg, layers, n in ((deepseek, DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_PARAMS),
+                           (deepseek, DEEPSEEK_SERVE_LAYERS, DEEPSEEK_SERVE_PARAMS),
+                           (jamba, JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_PARAMS),
+                           (jamba, JAMBA_SERVE_LAYERS, JAMBA_SERVE_PARAMS)):
+        got = M.param_count(cfg.with_(num_layers=layers))
+        check(got == n, f"{cfg.name} at depth {layers} has {got} parameters, not {n}")
     records = [*check_flash(gen), check_rmsnorm(gen), *check_ssd(gen)]
     records += [check_pack(cfg, gen, "pack", cfg.name) for cfg in paths]
     records.append(check_pack(paths[0], gen, "pack_bf16", BF16_PATH, torch.bfloat16))
@@ -1974,9 +2097,11 @@ def main():
     # the host-lane snapshot of phase 13's training job: all three groups
     records.append(check_pack(deepseek.with_(num_layers=DEEPSEEK_TRAIN_LAYERS), gen,
                               "pack_deepseek", DEEPSEEK))
+    records.append(check_pack(jamba.with_(num_layers=JAMBA_TRAIN_LAYERS), gen,
+                              "pack_jamba", JAMBA))
     runs = {cfg.name: main_path(cfg) for cfg in paths}
     counts = {name: c for name, (c, _, _) in runs.items()}    # by path
-    for arch in [cfg.name for cfg in paths] + [GRANITE, DEEPSEEK]:
+    for arch in [cfg.name for cfg in paths] + [GRANITE, DEEPSEEK, JAMBA]:
         trajectory(arch)
     for arch in [cfg.name for cfg in paths] + list(CLI_ARCHS):
         train_cli_smoke(arch)
@@ -1993,6 +2118,7 @@ def main():
     arch_vs_card(granite, moe_steps, card)
     counts.update(serve_phase(card))
     counts[DEEPSEEK], counts[serve_path(DEEPSEEK)] = mla_phase(card)
+    counts[JAMBA], counts[serve_path(JAMBA)] = hybrid_phase(card)
     for rec in records:     # launches on the path its shapes are from, and the operator's
         rec["launches"] = launches_of(rec, counts.get(rec["path"], {}))
         rec["operator_launches"] = launches_of(rec, op_counts)

@@ -1,14 +1,17 @@
 """Batched serving CLI of the port (same CLI as ``repro.launch.serve``,
 plus ``--device``): prefill a batch of prompts, then decode N tokens
 synchronously (greedy), in float32 as the reference forces.  ``--arch``
-takes every config the port builds (``configs.list_archs()``); use
-``--smoke`` on the CPU.
+takes every config the port builds (``configs.list_archs()``, the
+jamba-v0.1-52b hybrid among them); use ``--smoke`` on the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
       --batch 4 --prompt-len 16 --gen 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
+      --smoke --device cpu
 
-A Mamba-2 prompt must be a multiple of the SSD chunk, or shorter than it
-(the scan's own rule), and is refused before anything runs otherwise.
+A Mamba-2 or jamba prompt must be a multiple of the SSD chunk, or shorter
+than it (the scan's own rule), and is refused before anything runs
+otherwise.
 """
 import argparse
 

@@ -7,14 +7,18 @@ many slots exist (0 = as many as ``--devices`` and ``--rescale-at`` need),
 
 ``--arch`` takes every config the port builds (``configs.list_archs()``:
 the dense yi-6b, yi-9b, starcoder2-7b, minitron-4b and chameleon-34b, the
-granite-moe-3b-a800m MoE, the deepseek-v2-236b MLA + MoE model and
-mamba2-1.3b), each with ``--smoke``.
+granite-moe-3b-a800m MoE, the deepseek-v2-236b MLA + MoE model,
+mamba2-1.3b and the jamba-v0.1-52b hybrid), each with ``--smoke``.  A
+Mamba-2 or jamba ``--seq-len`` must be a multiple of the SSD chunk (8 in
+the smoke configs, 128 at full size) or shorter than it.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \
       --steps 50 --global-batch 8 --seq-len 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \
       --smoke --steps 20 --devices 4 --rescale-at 10:2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \
+      --smoke --steps 8 --devices 4 --rescale-at 3:2 --seq-len 32 --device cpu
 """
 import argparse
 

@@ -99,23 +99,27 @@ def _layer_cache(cfg: ModelConfig, i: int, batch: int, max_len: int, dtype,
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
                device="cuda") -> dict:
     """A zeroed cache for ``batch`` sequences of up to ``max_len`` tokens:
-    ``{"prefix": {"layer{i}": layer cache}, "blocks": {"sub0": layer cache
-    with a leading layer axis}}``, each part present where the model has
-    such layers; a layer cache is ``{"kv": {"k", "v"}}`` (GQA),
-    ``{"kv": {"ckv", "krope"}}`` (MLA) or ``{"ssm": {"conv", "h"}}``; ``h``
-    is float32, the rest ``dtype`` (the model's by default)."""
+    ``{"prefix": {"layer{i}": layer cache}, "blocks": {"sub{j}": layer
+    ``prefix + j``'s cache with a leading block axis}}``, each part present
+    where the model has such layers (a hybrid block holds both kinds); a
+    layer cache is ``{"kv": {"k", "v"}}`` (GQA), ``{"kv": {"ckv",
+    "krope"}}`` (MLA) or ``{"ssm": {"conv", "h"}}``; ``h`` is float32, the
+    rest ``dtype`` (the model's by default)."""
     _refuse_unported(cfg)
     prefix, n = cfg.scan_layers()
+    period = cfg.layer_period()
     dtype = dtype or getattr(torch, cfg.dtype)
     cache = {}
     if prefix:
         cache["prefix"] = {f"layer{i}": _layer_cache(cfg, i, batch, max_len, dtype, device)
                            for i in range(prefix)}
     if n:
-        layer = _layer_cache(cfg, prefix, batch, max_len, dtype, device)
-        stacked = {k: t.expand(n, *t.shape).contiguous()
-                   for k, t in flatten_tree(layer).items()}
-        cache["blocks"] = {"sub0": nest_flat(stacked)}
+        cache["blocks"] = {}
+        for j in range(period):
+            layer = _layer_cache(cfg, prefix + j, batch, max_len, dtype, device)
+            cache["blocks"][f"sub{j}"] = nest_flat(
+                {k: t.expand(n // period, *t.shape).contiguous()
+                 for k, t in flatten_tree(layer).items()})
     return cache
 
 

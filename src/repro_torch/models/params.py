@@ -1,8 +1,10 @@
 """Parameter specs and initialisation (counterpart of
 ``repro.models.params`` for the decoders the port builds: GQA attention with
 or without ``qk_norm``, DeepSeek-V2 MLA, SwiGLU, GELU, squared-ReLU or MoE
-FFNs, and Mamba-2; the ``first_dense`` prefix layers unstacked at
-``decoder/prefix/layer{i}`` beside the stacked ``decoder/blocks/sub0``).
+FFNs, and Mamba-2, alone or mixed in one period as jamba mixes them; the
+prefix layers (``first_dense``, and a depth's remainder modulo the layer
+period) unstacked at ``decoder/prefix/layer{i}``, the rest stacked in blocks
+of one period, ``decoder/blocks/sub{j}`` for j < ``cfg.layer_period()``).
 
 Shapes and the ``/``-joined flat keys equal
 ``repro.checkpoint.reshard.flatten_tree(repro.models.params.init_params(cfg,
@@ -146,23 +148,24 @@ def _stack(tree, n: int):
 
 def _refuse_unported(cfg: ModelConfig) -> None:
     """Layouts whose family is not ported yet, each with its ROADMAP item."""
-    if cfg.layer_period() != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid layer layouts wait for ROADMAP A.4(e)")
     if cfg.enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models wait for ROADMAP A.4(f)")
 
 
 def _decoder_specs(cfg: ModelConfig) -> dict:
-    """The prefix layers unstacked, the rest stacked on a leading layer axis;
-    a depth with no stacked layers has no ``blocks``."""
+    """The prefix layers unstacked; the rest in blocks of one layer period,
+    sub-layer j of every block stacked on a leading block axis as
+    ``sub{j}``, built as layer ``prefix + j`` (the index that picks its
+    mixer and FFN).  A depth with no stacked layers has no ``blocks``."""
     prefix, n = cfg.scan_layers()
+    period = cfg.layer_period()
     s = {}
     if prefix:
         s["prefix"] = {f"layer{i}": _layer_specs(cfg, i) for i in range(prefix)}
     if n:
-        s["blocks"] = {"sub0": _stack(_layer_specs(cfg, prefix), n)}
+        s["blocks"] = {f"sub{j}": _stack(_layer_specs(cfg, prefix + j), n // period)
+                       for j in range(period)}
     return s
 
 

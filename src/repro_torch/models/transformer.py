@@ -2,27 +2,32 @@
 mixer is GQA attention, MLA or the Mamba-2 SSD block, and its FFN dense, MoE
 or none, as ``cfg.mixer_at`` / ``cfg.ff_at`` say.
 
-The ``first_dense`` prefix layers run first, one by one, with unstacked
+The prefix layers (``first_dense``, and a depth's remainder modulo the
+layer period, ``cfg.scan_layers()``) run first, one by one, with unstacked
 parameters (``decoder/prefix/layer{i}/...``) and caches
-(``prefix/layer{i}/kv/{ckv, krope}``); the other layers' parameters are
-stacked with a leading layer axis (``decoder/blocks/sub0/...``) as the
-reference scans them, and so is their serving cache
-(``blocks/sub0/{kv: {k, v} | {ckv, krope}} | {ssm: {conv, h}}``).  A depth
-may have no stacked layers at all.  In train mode each layer, prefix layers
-included, runs under ``torch.utils.checkpoint(use_reentrant=False)``, the
-counterpart of the reference's remat policy "full" (which the reference
-applies to its scanned blocks only): only the residual stream is kept
-between layers and the layer is recomputed in the backward.  Prefill and
-decode call the layer directly, as the reference's ``_maybe_remat`` does.
+(``prefix/layer{i}/{kv | ssm}``).  The other layers run in blocks of one
+layer period (1, or 8 for jamba's hybrid), as the reference scans them:
+sub-layer j of every block is stacked with a leading block axis
+(``decoder/blocks/sub{j}/...``), and so is its serving cache
+(``blocks/sub{j}/{kv: {k, v} | {ckv, krope}} | {ssm: {conv, h}}``); block b
+runs sub0 .. sub{period-1}, and sub j is layer ``prefix + j`` to
+``cfg.mixer_at`` / ``cfg.ff_at``, as in the reference.  A depth may have no
+stacked layers at all.  In train mode each layer, prefix layers included,
+runs under ``torch.utils.checkpoint(use_reentrant=False)``, the counterpart
+of the reference's remat policy "full" (which the reference applies to each
+sub-layer of a hybrid block, to a whole block of one layer, and not to the
+prefix layers): only the residual stream is kept between layers and the
+layer is recomputed in the backward.  Prefill and decode call the layer
+directly, as the reference's ``_maybe_remat`` does.
 
 An MLA layer decodes through the W_UK-absorbed form and trains and
 prefills through the expanded one, as the reference's ``_MLA_ABSORB``
 defaults say (``set_mla_absorb`` changes them).
 
-The layer axis is split once, by ``_split_layers``, for every caller: a
-stacked leaf that takes a gradient gets per-layer leaves whose hooks add
-into its ``.grad``; a cache leaf gets per-layer views, so a layer's in-place
-writes land in the stacked cache.
+The block axis of each ``sub{j}`` is split once, by ``_split_layers``, for
+every caller: a stacked leaf that takes a gradient gets per-block leaves
+whose hooks add into its ``.grad``; a cache leaf gets per-block views, so a
+layer's in-place writes land in the stacked cache.
 
 Where the reference sums each MoE layer's aux loss, the port returns each
 MoE layer's ``moe.balance_stats`` sums: the loss is formed from them
@@ -124,17 +129,25 @@ def _split_layers(tree, n: int):
 
 def decoder(cfg: ModelConfig, dparams: dict, x, *, positions, mode: str = "train",
             cache: Optional[dict] = None, pos: Optional[int] = None):
-    """(x, cache, [(psum, counts) of each MoE layer]).  Prefill and decode
-    take the cache of ``model.make_cache`` and write it in place."""
+    """(x, cache, [(psum, counts) of each MoE layer, in layer order]).
+    Prefill and decode take the cache of ``model.make_cache`` and write it
+    in place."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     prefix, n = cfg.scan_layers()
+    period = cfg.layer_period()
+    n_blocks = n // period
     layers = [(i, dparams["prefix"][f"layer{i}"],
                cache["prefix"][f"layer{i}"] if cache else None) for i in range(prefix)]
     if n:
-        caches = _split_layers(cache["blocks"]["sub0"], n) if cache else [None] * n
-        layers += [(prefix, lp, c) for lp, c in
-                   zip(_split_layers(dparams["blocks"]["sub0"], n), caches)]
+        subs = []                   # (layer index, per-block params, per-block caches)
+        for j in range(period):
+            name = f"sub{j}"
+            caches = (_split_layers(cache["blocks"][name], n_blocks) if cache
+                      else [None] * n_blocks)
+            subs.append((prefix + j, _split_layers(dparams["blocks"][name], n_blocks),
+                         caches))
+        layers += [(i, lps[b], cs[b]) for b in range(n_blocks) for i, lps, cs in subs]
     moe_stats = []
     for i, lp, c in layers:
         if mode == "train":

@@ -105,6 +105,15 @@ def test_flash_kernel_redesign_shapes_on_card(dtype, B, S, H, KV, hd, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(1, 2048), (2, 300)])
+def test_flash_kernel_at_jambas_group_on_card(dtype, B, S):
+    """jamba-v0.1-52b's attention layer: 32 query heads over 8 KV heads of
+    128 (group 4), causal, at its serving prompt and off the tiles."""
+    _flash_against_plain(_card(), dtype, B, S, 32, 8, 128, True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S,hd", [(96, 32), (1000, 128)])
 def test_flash_kernel_non_causal_bf16_on_card(S, hd):
     _flash_against_plain(_card(), "bfloat16", 2, S, 8, 2, hd, False)
@@ -266,6 +275,31 @@ def test_ssd_kernel_three_groups_on_card(dt_shift):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssd_kernel_at_jambas_heads_and_state_on_card(dtype, strided):
+    """jamba-v0.1-52b's SSD widths (128 heads of head dim 64, one group of
+    d_state 16, chunk 128) at a short sequence; ``strided``: x, B and C as
+    slices of one activation of width 128 x 64 + 2 x 16, as the model
+    hands them over."""
+    dev = _card()
+    B, L, H, P, N = 2, 384, 128, 64, 16
+    x, dt, a_log, b, c = _ssd_inputs(dev, 16, B, L, H, P, 1, N)
+    dt_ = getattr(torch, dtype)
+    x, b, c = x.to(dt_), b.to(dt_), c.to(dt_)
+    if strided:
+        fused = torch.cat([x.reshape(B, L, -1), b.reshape(B, L, -1),
+                           c.reshape(B, L, -1)], dim=-1)
+        args = (fused[..., :H * P].reshape(B, L, H, P), dt, a_log,
+                fused[..., H * P:H * P + N].reshape(B, L, 1, N),
+                fused[..., H * P + N:].reshape(B, L, 1, N))
+        assert not args[0].is_contiguous()
+        _ssd_against_plain(*args, 128, exp_inputs=(x, dt, a_log, b, c))
+    else:
+        _ssd_against_plain(x, dt, a_log, b, c, 128)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("offset", [0, 1])          # 1: rows not 16-byte aligned
 @pytest.mark.parametrize("scale", [1.0, 20.0])       # 20: decay past exp's limit
 def test_ssd_kernel_strided_views_and_large_decay_on_card(offset, scale):
@@ -408,13 +442,14 @@ def _serve(cfg, params, tokens, prompt, steps):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-3b-a800m", "mamba2-1.3b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "jamba-v0.1-52b"])
 def test_serving_on_card_matches_the_cpu(arch):
     """A prefill of 16 tokens and 4 decode steps at smoke size, on the card
     against the same on the CPU (logits and every cache leaf within 2e-5);
     on the card a prefill launches flash attention once a GQA layer and the
     SSD scan once a Mamba-2 layer (an MLA layer attends through the blocked
-    twin: no launch), and a decode step launches none."""
+    twin: no launch; jamba's block, flash once and the SSD 7 times), and a
+    decode step launches none."""
     dev = _card()
     cfg = smoke_config(arch).with_(dtype="float32")
     params = M.init_params(cfg, 0, device="cpu")
@@ -498,3 +533,56 @@ def test_deepseek_train_step_on_card_matches_the_cpu():
     for k, a in want_p.items():
         torch.testing.assert_close(got_p[k].detach().cpu(), a.detach(), atol=1e-4,
                                    rtol=1e-4, msg=k)
+
+
+@pytest.mark.cuda
+def test_jamba_train_step_on_card_matches_the_cpu():
+    """The jamba smoke model (one period-8 block: 7 Mamba-2 layers, attention
+    at sub3, MoE on the odd subs) on the card against the CPU from the same
+    parameters: the loss, aux and every gradient of the trainers' first
+    global batch (2e-5, 1e-4), then two trainer steps at R=2 (loss and aux
+    within 2e-5, grad norm within 1e-4, every parameter after each step
+    within 1e-4 but at the elements whose first gradient is rounding, as
+    ``tests/test_torch_hybrid.py::_rounding`` defines them: not 0 and below
+    1e-7, where AdamW's first step goes by about the learning rate in the
+    direction of the rounding), each replica's forward and recompute
+    launching flash once and the SSD 7 times."""
+    dev = _card()
+    cfg = smoke_config("jamba-v0.1-52b")
+    job = TrainJobConfig(global_batch=8, seq_len=32, total_steps=4, seed=3)
+    cpu = ElasticTrainer(cfg, job, local_slots(2), device="cpu")
+    card = ElasticTrainer(cfg, job, local_slots(2), device=dev)
+    with torch.no_grad():
+        for k, t in flatten_tree(card.params).items():
+            t.copy_(flatten_tree(cpu.params)[k])
+    batch0 = {k: torch.from_numpy(v).long() for k, v in cpu.stream.global_batch_at(0).items()}
+    grads = {}
+    for where in ("cpu", dev):
+        params = M.from_numpy_flat(M.to_numpy_flat(cpu.params), device=where)
+        loss, m = M.loss_fn(cfg, params, {k: v.to(where) for k, v in batch0.items()})
+        loss.backward()
+        grads[str(where)] = [loss.detach(), m["aux"].detach()] + [
+            t.grad for t in flatten_tree(params).values()]
+    for i, (a, b) in enumerate(zip(grads["cpu"], grads[str(dev)])):
+        tol = 2e-5 if i < 2 else 1e-4
+        torch.testing.assert_close(b.cpu(), a, atol=tol, rtol=tol)
+    g0 = dict(zip(flatten_tree(cpu.params), grads["cpu"][2:]))
+    rounding = {k: (g != 0) & (g.abs() < 1e-7) for k, g in g0.items()}
+    assert sum(int(r.sum()) for r in rounding.values()) < 64
+    before = ops.launch_counts()
+    for _ in range(2):
+        want, got = cpu.step(), card.step()
+        assert got["aux"] > 0
+        for k, tol in (("loss", 2e-5), ("aux", 2e-5), ("grad_norm", 1e-4)):
+            assert abs(got[k] - want[k]) <= tol * max(1.0, abs(want[k])), (k, got[k], want[k])
+        want_p, got_p = flatten_tree(cpu.params), flatten_tree(card.params)
+        for k, a in want_p.items():
+            a = a.detach()
+            ok = (got_p[k].detach().cpu() - a).abs() <= 1e-4 + 1e-4 * a.abs()
+            assert bool((ok | rounding[k]).all()), k
+            if not bool(ok.all()):
+                print(f"{k}: beyond 1e-4 where the first gradient is {g0[k][~ok].tolist()}")
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_attention": 2 * 2 * 2, "pack": 0, "rmsnorm": 0, "ssd": 2 * 2 * 2 * 7}

@@ -91,6 +91,9 @@ SERVE_MODULES = {"repro_torch.launch.serve", "repro_torch.utils",
 # multi-head latent attention: the blocked-attention twin and deepseek-v2
 MLA_MODULES = {"repro_torch.kernels.blocked", "repro_torch.configs.deepseek_v2_236b"}
 
+# the hybrid layout: jamba-v0.1-52b's config
+HYBRID_MODULES = {"repro_torch.configs.jamba_v0_1_52b"}
+
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -98,7 +101,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 76, proc.stdout
+    assert n >= 77, proc.stdout
     names = set(proc.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
     assert OPERATOR_MODULES <= names, sorted(OPERATOR_MODULES - names)
     assert SIMULATOR_MODULES <= names, sorted(SIMULATOR_MODULES - names)
@@ -107,3 +110,4 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert MODEL_MODULES <= names, sorted(MODEL_MODULES - names)
     assert SERVE_MODULES <= names, sorted(SERVE_MODULES - names)
     assert MLA_MODULES <= names, sorted(MLA_MODULES - names)
+    assert HYBRID_MODULES <= names, sorted(HYBRID_MODULES - names)

@@ -1,10 +1,11 @@
 """The PyTorch port's models against the JAX package on the CPU: the dense
 yi-6b, yi-9b, starcoder2-7b (GELU), minitron-4b (squared ReLU) and
 chameleon-34b (qk_norm) decoders, the granite-moe-3b-a800m MoE, the
-deepseek-v2-236b MLA + MoE model and Mamba-2 mamba2-1.3b: configs, data
-stream, parameter keys and shapes, parameter counts, the init
-distributions, loss (aux included) and every gradient; and the refusal of
-the layouts whose family is not ported yet.
+deepseek-v2-236b MLA + MoE model, Mamba-2 mamba2-1.3b and the
+jamba-v0.1-52b hybrid: configs, data stream, parameter keys and shapes,
+parameter counts, the init distributions, loss (aux included) and every
+gradient; and the refusal of the encoder-decoder layout, whose family is
+not ported yet.
 
 The JAX smoke parameters are carried across with ``from_numpy_flat``;
 tolerances are the reference's (loss 2e-5, gradients 1e-4)."""
@@ -36,7 +37,7 @@ from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 ARCHS = ["yi-6b", "mamba2-1.3b", "granite-moe-3b-a800m", "yi-9b", "starcoder2-7b",
-         "minitron-4b", "chameleon-34b", "deepseek-v2-236b"]
+         "minitron-4b", "chameleon-34b", "deepseek-v2-236b", "jamba-v0.1-52b"]
 FIELDS = ("name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
           "d_ff", "vocab_size", "resolved_head_dim", "padded_vocab", "rope_theta",
           "norm_eps", "ff_kind", "dtype", "vocab_pad_to", "default_mixer",
@@ -49,7 +50,8 @@ FULL_SIZE = {"granite-moe-3b-a800m": (3_299_182_080, 881_690_112),
              "starcoder2-7b": (7_399_051_776, 7_399_051_776),
              "minitron-4b": (4_190_309_376, 4_190_309_376),
              "chameleon-34b": (34_293_436_416, 34_293_436_416),
-             "deepseek-v2-236b": (235_741_434_880, 21_329_280_000)}
+             "deepseek-v2-236b": (235_741_434_880, 21_329_280_000),
+             "jamba-v0.1-52b": (51_460_000_640, 11_999_071_104)}
 # deepseek-v2-236b at full width cut in depth: (layers, parameters, active)
 DEEPSEEK_DEPTHS = [(1, 1_386_562_560, 1_386_562_560),       # the dense prefix layer
                    (2, 5_358_679_040, 1_724_574_720),
@@ -120,7 +122,6 @@ def test_full_size_param_counts_equal_reference(arch):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("jamba-v0.1-52b", "A.4(e)"),              # hybrid: attention every 8th layer
     ("seamless-m4t-large-v2", "A.4(f)")])      # encoder-decoder
 def test_unported_layouts_are_refused_with_their_roadmap_item(arch, item):
     cfg = _port_config(jget_config(arch))
@@ -183,13 +184,6 @@ def test_init_params_draw_reference_distributions():
     w = p["decoder/blocks/sub0/ff/w_down"]
     assert abs(float(w.detach().std()) - 512 ** -0.5) < 0.05 * 512 ** -0.5
     assert all(t.requires_grad for t in p.values())
-
-
-def test_hybrid_layouts_are_refused_until_their_slice():
-    hybrid = get_config("mamba2-1.3b").with_(attn_every=2, attn_offset=1)
-    assert hybrid.layer_period() == 2
-    with pytest.raises(NotImplementedError):
-        M.param_specs(hybrid)
 
 
 def test_mamba2_init_draws_reference_distributions():

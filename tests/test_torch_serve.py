@@ -1,7 +1,7 @@
 """The port's serving path against the JAX package on the CPU: prefill's
 last-token logits and every cache leaf, decode steps, a decode step from the
 reference's own prefill cache, and decode against the port's own teacher
-forcing, for the dense (SwiGLU, GELU, qk_norm), MoE and Mamba-2 layouts;
+forcing, for the dense (SwiGLU, GELU, qk_norm), MoE, Mamba-2 and hybrid layouts;
 the pieces (``_grouped_attention``, ``ssd_final_state``, ``make_cache``,
 ``pad_cache``); the analytic FLOP models; and the ``launch.serve`` CLI.
 
@@ -44,7 +44,7 @@ from repro_torch.utils import flops  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["yi-6b", "mamba2-1.3b", "granite-moe-3b-a800m", "chameleon-34b",
-         "starcoder2-7b"]
+         "starcoder2-7b", "jamba-v0.1-52b"]
 # a prompt of two chunks of the Mamba-2 smoke config's 8, then GEN decode
 # steps that fill the serving window exactly
 B, S0, GEN = 2, 16, 8
@@ -234,8 +234,10 @@ def test_make_and_pad_cache_match_the_references_keys_shapes_and_dtypes(arch, dt
 
 
 def test_unported_layouts_have_no_cache():
-    cfg = get_config("mamba2-1.3b").with_(attn_every=2, attn_offset=1)
-    with pytest.raises(NotImplementedError, match="A.4"):
+    """An encoder-decoder config (yi-6b's decoder given an encoder, built by
+    hand: the port registers no such arch) is refused with its item."""
+    cfg = get_config("yi-6b").with_(enc_layers=2)
+    with pytest.raises(NotImplementedError, match=r"A\.4\(f\)"):
         M.make_cache(cfg, 1, 4, device="cpu")
 
 
