@@ -22,8 +22,10 @@ without a CUDA device the script exits non-zero before printing a result:
    the device ms of each of its three launches (torch.profiler); flash
    attention and the parameters' pack also at phase 11's granite-moe shapes,
    flash attention and the SSD scan also at phase 12's prefill shapes and
-   at phase 14's jamba prefill (group 4; 128 SSM heads of d_state 16), the
-   pack at phases 13's and 14's training snapshots;
+   at phase 14's jamba prefill (group 4; 128 SSM heads of d_state 16),
+   flash attention at phase 15's seamless training shard and prefill (group
+   1, head dim 64), the pack at phases 13's, 14's and 15's training
+   snapshots;
 4. the main paths, each an ElasticTrainer at global batch 8 x 2048 on 4
    logical replicas, stepped, shrunk to 2 on the host lane, stepped,
    expanded to 4 on the p2p lane, stepped; launch counts are zeroed just
@@ -33,12 +35,13 @@ without a CUDA device the script exits non-zero before printing a result:
    full published size (48 layers, 1,344,052,224 parameters);
 5. a static vs rescaled trajectory check at depth 1, for each path and for
    granite-moe-3b-a800m (whose load-balance loss is the global batch's at
-   every replica count), deepseek-v2-236b (its dense MLA prefix layer) and
-   jamba-v0.1-52b (its layer 0: Mamba-2 and a dense SwiGLU);
+   every replica count), deepseek-v2-236b (its dense MLA prefix layer),
+   jamba-v0.1-52b (its layer 0: Mamba-2 and a dense SwiGLU) and
+   seamless-m4t-large-v2 (one encoder and one decoder layer);
 6. ``repro_torch.launch.train --smoke`` on the card with ``--rescale-at``,
    ``--checkpoint-dir`` and ``--restart``, for each arch the port builds
-   (SwiGLU, GELU, squared ReLU, qk_norm, MoE, MLA, Mamba-2 and jamba's
-   hybrid block);
+   (SwiGLU, GELU, squared ReLU, qk_norm, MoE, MLA, Mamba-2, jamba's
+   hybrid block and seamless's encoder-decoder);
 7. the live operator (``ElasticClusterController``) at full width, with
    the launch counts zeroed before the phase and read after it: scenario A
    (priority shrink and expand-back of two yi-6b depth-4 jobs on 8 logical
@@ -107,7 +110,8 @@ without a CUDA device the script exits non-zero before printing a result:
     (``torch.profiler``), peak memory, and the decode logits held to the
     training forward's at the generated positions (teacher forcing); then
     ``python -m repro_torch.launch.serve --smoke`` on the card for yi-6b,
-    granite-moe-3b-a800m, mamba2-1.3b, deepseek-v2-236b and jamba-v0.1-52b;
+    granite-moe-3b-a800m, mamba2-1.3b, deepseek-v2-236b, jamba-v0.1-52b and
+    seamless-m4t-large-v2 (random encoder frames);
 13. multi-head latent attention, ``[mla]`` lines: deepseek-v2-236b at its
     full published width (d_model 5120, 128 heads, q/kv lora 1536/512,
     qk 128+64, v 128, 160 routed experts top-6 and 2 shared of 1536, vocab
@@ -142,7 +146,23 @@ without a CUDA device the script exits non-zero before printing a result:
     sizes: flash once and the SSD scan 7 times a prefill, none a decode
     step, prefill and decode against the reference FLOPs and the byte
     bound, idle shares, peak memory under ``SERVE_PEAK``.  (c) Teacher
-    forcing at full width under the dense MoE, as phase 13(c).
+    forcing at full width under the dense MoE, as phase 13(c);
+15. the encoder-decoder layout, ``[encdec]`` lines: seamless-m4t-large-v2
+    at its full published size (24 encoder and 24 decoder layers, d_model
+    1024, 16 heads of 64, GELU d_ff 8192, tied 256,256-row embedding;
+    1,369,827,328 parameters), through the same function.  (a) Its
+    training job, the encoder reading 2048 float32 frames a sequence,
+    through phase 4's sequence: every loss finite, the first near ln
+    256206, aux 0, flash 2 x 24 x R a step (the decoder's causal
+    self-attention, forward and recompute; the encoder's bidirectional
+    attention and the cross attention go through the blocked twin), pack
+    {float32: 2, int32: 1}, the restore byte-exact, the profile and the
+    arch model beside the step.  (b) Served at phase 12's sizes with 2048
+    random frames a prompt: flash 24 a prefill, none a decode step, prefill
+    against the reference FLOPs (encoder included), decode against the
+    byte bound (no encoder weight and no cross ``wk``/``wv``, the cross
+    cache read once), idle shares, peak memory under ``SERVE_PEAK``.  (c)
+    Teacher forcing on that serving run, with the same frames.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
@@ -162,7 +182,11 @@ phase 13's host-lane snapshot, on its path ``deepseek-v2-236b``;
 ``flash_attention_jamba`` and ``ssd_jamba`` are the two kernels at phase
 14's prefill shapes, on its path ``jamba-v0.1-52b-serve``, and
 ``pack_jamba`` is the pack of phase 14's training snapshot, on its path
-``jamba-v0.1-52b``.
+``jamba-v0.1-52b``; ``flash_attention_seamless`` is flash attention at one
+replica's shard of phase 15's training job, on its path
+``seamless-m4t-large-v2``, ``flash_attention_seamless_serve`` at its
+prefill, on ``seamless-m4t-large-v2-serve``, and ``pack_seamless`` the pack
+of its training snapshot.
 """
 import contextlib
 import dataclasses
@@ -310,7 +334,8 @@ MOE_JOB = dict(MAIN_JOB, peak_lr=OPERATOR_JOB["peak_lr"])
 CARD_MEMORY = 80e9
 # the archs whose CLI smoke runs in phase 6 besides phase 4's paths
 CLI_ARCHS = ("granite-moe-3b-a800m", "yi-9b", "starcoder2-7b", "minitron-4b",
-             "chameleon-34b", "deepseek-v2-236b", "jamba-v0.1-52b")
+             "chameleon-34b", "deepseek-v2-236b", "jamba-v0.1-52b",
+             "seamless-m4t-large-v2")
 # phase 12: serving at full published size in float32 (the reference's
 # serve CLI forces it): a batch of 8 prompts of 2048 tokens, 64 generated
 # tokens (63 decode steps); the decode logits are held to the training
@@ -350,7 +375,17 @@ SERVE_PEAK = 76e9
 JAMBA = "jamba-v0.1-52b"
 JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_PARAMS = 1, 814_412_320
 JAMBA_SERVE_LAYERS, JAMBA_SERVE_PARAMS = 8, 13_267_656_416
-SERVE_CLI_ARCHS = ("yi-6b", GRANITE, "mamba2-1.3b", DEEPSEEK, JAMBA)
+# phase 15: seamless-m4t-large-v2, the encoder-decoder (24 encoder and 24
+# decoder layers, d_model 1024, 16 heads of 64, GELU d_ff 8192, a tied
+# 256,256-row embedding), at its full published size (21.9 GB of float32
+# AdamW state: the card holds it whole, nothing is cut).  It trains at
+# phase 4's batch and replicas and the operator's peak rate, its encoder
+# reading 2048 frames a sequence (the stream's enc_len = seq_len); it
+# serves at phase 12's sizes with 2048 random frames a prompt, and teacher
+# forcing runs on that serving run, with the same frames
+SEAMLESS = "seamless-m4t-large-v2"
+SEAMLESS_PARAMS = 1_369_827_328
+SERVE_CLI_ARCHS = ("yi-6b", GRANITE, "mamba2-1.3b", DEEPSEEK, JAMBA, SEAMLESS)
 
 
 def serve_path(arch):
@@ -358,14 +393,18 @@ def serve_path(arch):
 
 
 # flash attention's phase-3 cases: (record, path, dtype, one replica's shard
-# at R=4, or phase 12's or 14's prefill batch, as (B, S, H, KV, head_dim))
+# at R=4, or phase 12's, 14's or 15's prefill batch, as (B, S, H, KV,
+# head_dim)); seamless's decoder self-attention is group 1 at head dim 64
 FLASH_CASES = (("flash_attention", "yi-6b", torch.float32, (2, 2048, 32, 4, 128)),
                ("flash_attention_bf16", BF16_PATH, torch.bfloat16, (2, 2048, 32, 4, 128)),
                ("flash_attention_granite", GRANITE, torch.float32, (2, 2048, 24, 8, 64)),
                ("flash_attention_serve", serve_path("yi-6b"), torch.float32,
                 (8, 2048, 32, 4, 128)),
                ("flash_attention_jamba", serve_path(JAMBA), torch.float32,
-                (8, 2048, 32, 8, 128)))
+                (8, 2048, 32, 8, 128)),
+               ("flash_attention_seamless", SEAMLESS, torch.float32, (2, 2048, 16, 16, 64)),
+               ("flash_attention_seamless_serve", serve_path(SEAMLESS), torch.float32,
+                (8, 2048, 16, 16, 64)))
 # the SSD scan's phase-3 cases: (record, path, dtype, (B, L, H, P, G, N,
 # chunk)): one replica's shard of mamba2-1.3b at R=4, phase 12's prefill,
 # and phase 14's jamba prefill (128 heads, d_state 16)
@@ -804,13 +843,17 @@ def profile_step(t, top=8):
         say("profile", ms=f"{ms:.2f}", calls=n, kernel=name[:90].replace(" ", "_"))
 
 
-def trajectory(arch):
-    cfg = get_config(arch).with_(num_layers=1)
+def trajectory(arch, device="cuda", base=None):
+    """Static vs rescaled at depth 1 (an encoder-decoder: one encoder layer
+    and one decoder layer) of ``base``, ``arch``'s published config by
+    default (the CPU tests pass a smoke one)."""
+    cfg = base or get_config(arch)
+    cfg = cfg.with_(num_layers=1, enc_layers=min(cfg.enc_layers, 1))
     job = TrainJobConfig(global_batch=8, seq_len=256, total_steps=6, seed=1)
-    static = ElasticTrainer(cfg, job, local_slots(4), device="cuda")
+    static = ElasticTrainer(cfg, job, local_slots(4), device=device)
     for _ in range(6):
         static.step()
-    el, _, timings = run_elastic(cfg, job, log=False)
+    el, _, timings = run_elastic(cfg, job, log=False, device=device)
     la = [m["loss"] for m in static.metrics_log]
     lb = [m["loss"] for m in el.metrics_log]
     lerr = max(abs(a - b) for a, b in zip(la, lb))
@@ -820,16 +863,18 @@ def trajectory(arch):
     perr = errs[leaf]
     at = np.unravel_index(int((fa[leaf] - fb[leaf]).detach().abs().argmax()),
                           tuple(fa[leaf].shape))
-    say("trajectory", arch=arch, depth=1, loss_err=lerr, param_err=perr,
-        param_err_leaf=leaf, param_err_at=list(map(int, at)),
-        static_value=float(fa[leaf][at]), rescaled_value=float(fb[leaf][at]),
+    say("trajectory", arch=arch, depth=1, enc_layers=cfg.enc_layers, loss_err=lerr,
+        param_err=perr, param_err_leaf=leaf, param_err_at=list(map(int, at)),
+        static_value=float(fa[leaf].detach()[at]),
+        rescaled_value=float(fb[leaf].detach()[at]),
         loss_tol=TRAJ_LOSS_TOL, param_tol=TRAJ_PARAM_TOL,
         paths=[r.path for r in timings], loss_first=la[0], loss_last=la[-1])
     check(lerr <= TRAJ_LOSS_TOL, f"trajectory loss err {lerr}")
     check(perr <= TRAJ_PARAM_TOL, f"trajectory param err {perr}")
     del static, el
     gc.collect()
-    torch.cuda.empty_cache()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
 # -- phase 6 -------------------------------------------------------------------------
@@ -1776,13 +1821,17 @@ def routed_experts():
 
 def decode_step_bytes(cfg, params, cache, batch, ctx, experts):
     """The least bytes a decode step with ``ctx`` tokens in the cache moves:
-    every weight read once, except an untied embedding table (only the rows
-    it gathers) and the routed experts (only the ``experts`` (layer, expert)
-    pairs the step's routing selected; every MoE layer has the same
-    widths); the cache entries (keys and values, or MLA's latent and rope
-    key) of ``ctx + 1`` positions a layer read and the new position's
-    written, or the SSM conv window and state read and written."""
-    flat = flatten_tree(params)
+    every weight a decode step uses read once, except an untied embedding
+    table (only the rows it gathers) and the routed experts (only the
+    ``experts`` (layer, expert) pairs the step's routing selected; every MoE
+    layer has the same widths); the cache entries (keys and values, or
+    MLA's latent and rope key) of ``ctx + 1`` positions a layer read and the
+    new position's written, or the SSM conv window and state read and
+    written.  An encoder-decoder model's step uses no encoder weight and no
+    cross ``wk``/``wv`` (the cross cache holds their products), and reads
+    its cross cache once, writing none of it."""
+    flat = {k: t for k, t in flatten_tree(params).items()
+            if not k.startswith("encoder/") and not k.endswith(("/cross/wk", "/cross/wv"))}
     w = nbytes(*flat.values())
     if not cfg.tie_embeddings:
         e = params["embed"]
@@ -1798,6 +1847,8 @@ def decode_step_bytes(cfg, params, cache, batch, ctx, experts):
         if "/kv/" in key:               # (layers, B, window, ...) or, prefix, (B, window, ...)
             per_pos = nbytes(t) // t.shape[1 if key.startswith("prefix/") else 2]
             c += per_pos * (ctx + 2)
+        elif "/cross/" in key:          # the encoder's keys and values, read only
+            c += nbytes(t)
         else:
             c += 2 * nbytes(t)
     return w + c
@@ -1816,7 +1867,10 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     training forward over the prompt and the decoded inputs (padded at the
     end to the SSD's chunk, which leaves earlier positions unchanged), its
     logits at the generated positions held to the decode logits (not under
-    the MoE's gather dispatch, whose drops depend on the batch).  An MLA
+    the MoE's gather dispatch, whose drops depend on the batch).  An
+    encoder-decoder model's prefill and teacher forcing read the same
+    ``prompt`` random frames a prompt (``enc_embeds``, from the prompts'
+    seeded generator), and its prefill FLOPs count the encoder.  An MLA
     model's first decode step runs once more through the unabsorbed form
     first, from the same cache, and the two steps' logits are held together
     (each layer writes its new latent entry before it reads the cache, so
@@ -1836,13 +1890,15 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     params = M.init_params(cfg, SERVE["seed"], device=device)
     g = torch.Generator(device=device).manual_seed(SERVE["seed"])
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g, device=device)
+    frames = ({"enc_embeds": torch.randn((batch, prompt, cfg.d_model), generator=g,
+                                         device=device)} if cfg.enc_layers else {})
     max_len = prompt + gen
     none = {k: {} for k in ops.launch_counts()}
 
     sync()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    cache, logits = M.prefill(cfg, params, {"tokens": prompts})
+    cache, logits = M.prefill(cfg, params, {"tokens": prompts, **frames})
     sync()
     prefill_s = time.perf_counter() - t0
     prefill_counts = ops.launch_counts_by_dtype()
@@ -1890,7 +1946,7 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     n = len(out) - 1
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
-    flops = fwd_flops(cfg, batch, prompt)
+    flops = fwd_flops(cfg, batch, prompt, enc_len=prompt)
     steps = range(prompt, max_len - 1)
     # the (layer, expert) pairs each step's routing selected
     moe_layers = sum(cfg.ff_at(i) == FF_MOE for i in range(cfg.num_layers))
@@ -1925,7 +1981,8 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
         expected_prefill=json.dumps(want).replace(" ", ""))
 
     if on_card:
-        for what, fn in (("prefill", lambda: M.prefill(cfg, params, {"tokens": prompts})),
+        for what, fn in (("prefill", lambda: M.prefill(cfg, params,
+                                                        {"tokens": prompts, **frames})),
                          ("decode_step", lambda: M.decode_step(cfg, params, cache, toks,
                                                                max_len - 1))):
             wall_ms, by_name, busy_ms = device_profile(fn)
@@ -1936,8 +1993,8 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
                 **{f"{grp}_ms": f"{v:.3f}" for grp, v in kernel_groups(by_name).items()})
 
     if forced:
-        teacher_forcing(cfg, params, prompts, out, step_logits, tag)
-    del params, cache, step_logits
+        teacher_forcing(cfg, params, prompts, out, step_logits, tag, frames)
+    del params, cache, step_logits, frames
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -1945,17 +2002,18 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     return prefill_counts           # the decode loop's are checked to be none
 
 
-def teacher_forcing(cfg, params, prompts, out, step_logits, tag):
+def teacher_forcing(cfg, params, prompts, out, step_logits, tag, frames=None):
     """The training forward over the prompt and the decoded inputs (padded
     at the end to the SSD's chunk, which leaves earlier positions
-    unchanged), its logits at the generated positions held to the decode
+    unchanged; an encoder-decoder model's encoder over the prefill's
+    ``frames``), its logits at the generated positions held to the decode
     logits within ``SERVE_TF_TOL`` x max(1, max |logit|)."""
     prompt = prompts.shape[1]
     seq = torch.cat([prompts, *out[:-1]], dim=1)         # the decode steps' inputs
     pad = -seq.shape[1] % cfg.ssm.chunk if cfg.ssm is not None else 0
     with torch.inference_mode():
         hidden, _ = M.forward_hidden(cfg, params, {"tokens": torch.nn.functional.pad(
-            seq, (0, pad))})
+            seq, (0, pad)), **(frames or {})})
         forced = torch.matmul(hidden[:, prompt - 1:seq.shape[1]],
                               M._head_weight(cfg, params))[..., :cfg.vocab_size].float()
     del hidden
@@ -1997,27 +2055,31 @@ def serve_phase(card):
     return counts
 
 
-# -- phases 13 and 14 ---------------------------------------------------------------
+# -- phases 13, 14 and 15 -----------------------------------------------------------
 
 def full_width_phase(arch, tag, card, train_layers, serve_layers, device="cuda",
                      train_cfg=None, serve_cfg=None, job=MOE_JOB, serve=SERVE, tf=MLA_TF):
-    """A model at its full published width, cut in depth, logged under
-    ``tag``: its training job at ``train_layers`` through phase 4's sequence
-    (``job_phase``; its first loss held near ln V), the arch model beside
-    its steady step; then served at ``serve_layers`` (``serve_model``), its
-    peak memory held under ``SERVE_PEAK``; then teacher forcing under the
-    dense MoE (at batch 1).  The configs and sizes default to the card's;
-    the CPU tests pass smoke ones.  Returns (the training job's launch
-    counts by dtype, the serving prefill's)."""
+    """A model at its full published width, cut in depth or not, logged
+    under ``tag``: its training job at ``train_layers`` through phase 4's
+    sequence (``job_phase``; its first loss held near ln V), the arch model
+    beside its steady step; then served at ``serve_layers``
+    (``serve_model``), its peak memory held under ``SERVE_PEAK``; then
+    teacher forcing under the dense MoE at the ``tf`` sizes (batch 1), or,
+    with ``tf`` None, on the serving run itself.  The configs and sizes
+    default to the card's; the CPU tests pass smoke ones.  Returns (the
+    training job's launch counts by dtype, the serving prefill's)."""
     t_phase = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
     full = get_config(arch)
     train_cfg = train_cfg or full.with_(num_layers=train_layers)
     serve_cfg = serve_cfg or full.with_(num_layers=serve_layers, dtype="float32")
-    cut = f"depth:{{}}/{full.num_layers}"
+
+    def cut(cfg):
+        if (cfg.num_layers, cfg.enc_layers) == (full.num_layers, full.enc_layers):
+            return "none"
+        return f"depth:{cfg.num_layers}/{full.num_layers}"
     train_counts, step_s, losses = job_phase(
-        train_cfg, tag, job=job, device=device,
-        reduced=cut.format(train_cfg.num_layers))
+        train_cfg, tag, job=job, device=device, reduced=cut(train_cfg))
     ln_v = math.log(train_cfg.vocab_size)
     say(tag, arch=train_cfg.name, first_loss=losses[0], ln_vocab=ln_v,
         first_loss_minus_ln_vocab=losses[0] - ln_v, tol=FIRST_LOSS_TOL)
@@ -2025,20 +2087,21 @@ def full_width_phase(arch, tag, card, train_layers, serve_layers, device="cuda",
           f"{tag}: first loss {losses[0]} is not near ln V = {ln_v}")
     if on_card:
         arch_vs_card(train_cfg, step_s, card, tag=tag)
-    serve_counts = serve_model(serve_cfg, card, device=device, tag=tag, forced=False,
-                               reduced=cut.format(serve_cfg.num_layers),
+    serve_counts = serve_model(serve_cfg, card, device=device, tag=tag, forced=tf is None,
+                               reduced=cut(serve_cfg),
                                **{k: serve[k] for k in ("batch", "prompt", "gen")})
     if on_card:         # serve_model reset the peak before its prefill
         peak = torch.cuda.max_memory_allocated()
         say(tag, arch=serve_cfg.name, serve_peak_gb=f"{peak / 1e9:.2f}",
             limit_gb=f"{SERVE_PEAK / 1e9:.0f}")
         check(peak < SERVE_PEAK, f"{tag}: serving peak {peak / 1e9:.2f} GB")
-    set_moe_impl("dense")
-    try:
-        serve_model(serve_cfg, card, device=device, tag=tag,
-                    reduced=cut.format(serve_cfg.num_layers), **tf)
-    finally:
-        set_moe_impl("gather")
+    if tf is not None:
+        set_moe_impl("dense")
+        try:
+            serve_model(serve_cfg, card, device=device, tag=tag, reduced=cut(serve_cfg),
+                        **tf)
+        finally:
+            set_moe_impl("gather")
     say(tag, seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
     return train_counts, serve_counts
 
@@ -2058,6 +2121,17 @@ def hybrid_phase(card, **kw):
     cache)."""
     return full_width_phase(JAMBA, "hybrid", card, JAMBA_TRAIN_LAYERS,
                             JAMBA_SERVE_LAYERS, **kw)
+
+
+def encdec_phase(card, **kw):
+    """Phase 15, ``[encdec]`` lines: seamless-m4t-large-v2 at its full
+    published size, 24 encoder and 24 decoder layers, trained (flash in the
+    decoder's causal self-attention, the blocked twin in the encoder's and
+    in the cross attention) and served (the cross cache written by the
+    prefill, read by every decode step), teacher forcing on the serving
+    run with the same frames."""
+    full = get_config(SEAMLESS).num_layers
+    return full_width_phase(SEAMLESS, "encdec", card, full, full, tf=None, **kw)
 
 
 def main():
@@ -2082,7 +2156,9 @@ def main():
           == (GRANITE_PARAMS, GRANITE_ACTIVE_PARAMS),
           f"{GRANITE} has {M.param_count(granite)} parameters, "
           f"{M.count_active_params(granite)} active")
-    deepseek, jamba = get_config(DEEPSEEK), get_config(JAMBA)
+    deepseek, jamba, seamless = get_config(DEEPSEEK), get_config(JAMBA), get_config(SEAMLESS)
+    check(M.param_count(seamless) == SEAMLESS_PARAMS,
+          f"{SEAMLESS} has {M.param_count(seamless)} parameters, not {SEAMLESS_PARAMS}")
     for cfg, layers, n in ((deepseek, DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_PARAMS),
                            (deepseek, DEEPSEEK_SERVE_LAYERS, DEEPSEEK_SERVE_PARAMS),
                            (jamba, JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_PARAMS),
@@ -2099,9 +2175,10 @@ def main():
                               "pack_deepseek", DEEPSEEK))
     records.append(check_pack(jamba.with_(num_layers=JAMBA_TRAIN_LAYERS), gen,
                               "pack_jamba", JAMBA))
+    records.append(check_pack(seamless, gen, "pack_seamless", SEAMLESS))
     runs = {cfg.name: main_path(cfg) for cfg in paths}
     counts = {name: c for name, (c, _, _) in runs.items()}    # by path
-    for arch in [cfg.name for cfg in paths] + [GRANITE, DEEPSEEK, JAMBA]:
+    for arch in [cfg.name for cfg in paths] + [GRANITE, DEEPSEEK, JAMBA, SEAMLESS]:
         trajectory(arch)
     for arch in [cfg.name for cfg in paths] + list(CLI_ARCHS):
         train_cli_smoke(arch)
@@ -2119,6 +2196,7 @@ def main():
     counts.update(serve_phase(card))
     counts[DEEPSEEK], counts[serve_path(DEEPSEEK)] = mla_phase(card)
     counts[JAMBA], counts[serve_path(JAMBA)] = hybrid_phase(card)
+    counts[SEAMLESS], counts[serve_path(SEAMLESS)] = encdec_phase(card)
     for rec in records:     # launches on the path its shapes are from, and the operator's
         rec["launches"] = launches_of(rec, counts.get(rec["path"], {}))
         rec["operator_launches"] = launches_of(rec, op_counts)

@@ -1,8 +1,9 @@
 """Architecture configs of the port: dense yi-6b, yi-9b, starcoder2-7b,
 minitron-4b, the chameleon-34b backbone, the granite-moe-3b-a800m MoE,
-the deepseek-v2-236b MLA + MoE model, Mamba-2 mamba2-1.3b and the
+the deepseek-v2-236b MLA + MoE model, Mamba-2 mamba2-1.3b, the
 jamba-v0.1-52b hybrid (Mamba-2 and attention layers, MoE every second
-layer, stacked in period-8 blocks).
+layer, stacked in period-8 blocks) and the seamless-m4t-large-v2
+encoder-decoder (its audio frontend a stub).
 
 ``get_config(arch)`` returns the full published config; ``smoke_config(arch)``
 the same tiny variant as ``repro.configs.smoke_config`` (d_model 64, vocab 128
@@ -22,7 +23,8 @@ from repro_torch.configs.base import (ATTN, FF_GELU, FF_MOE, FF_NONE,
                                       shape_applicable)
 from repro_torch.configs import (chameleon_34b, deepseek_v2_236b,  # noqa: F401
                                  granite_moe_3b_a800m, jamba_v0_1_52b,
-                                 mamba2_1_3b, minitron_4b, starcoder2_7b,
+                                 mamba2_1_3b, minitron_4b,
+                                 seamless_m4t_large_v2, starcoder2_7b,
                                  yi_6b, yi_9b)
 
 

@@ -158,7 +158,10 @@ class ElasticTrainer:
     # -- train step -------------------------------------------------------------
     def step(self) -> dict:
         batch_np = self.stream.global_batch_at(self.step_idx)
-        batch = {k: torch.from_numpy(v).to(self.device, torch.long)
+        # tokens and labels as long; an encoder-decoder model's float32
+        # enc_embeds as they are (the model casts them to its dtype)
+        batch = {k: torch.from_numpy(v).to(self.device, None if v.dtype.kind == "f"
+                                          else torch.long)
                  for k, v in batch_np.items()}
         n_tokens = float((batch_np["labels"] >= 0).sum())
         denom = max(n_tokens, 1.0)

@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import TokenStream, make_stream
+from repro_torch.data.pipeline import EncDecStream, TokenStream, make_stream
 
-__all__ = ["TokenStream", "make_stream"]
+__all__ = ["EncDecStream", "TokenStream", "make_stream"]

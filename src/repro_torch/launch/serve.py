@@ -2,12 +2,17 @@
 plus ``--device``): prefill a batch of prompts, then decode N tokens
 synchronously (greedy), in float32 as the reference forces.  ``--arch``
 takes every config the port builds (``configs.list_archs()``, the
-jamba-v0.1-52b hybrid among them); use ``--smoke`` on the CPU.
+jamba-v0.1-52b hybrid and the seamless-m4t-large-v2 encoder-decoder among
+them); use ``--smoke`` on the CPU.  An encoder-decoder model's encoder
+reads ``--prompt-len`` random frames a prompt (``enc_embeds``, float32, from
+the same seeded generator as the prompts), as the reference's CLI does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke \\
       --batch 4 --prompt-len 16 --gen 16 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch seamless-m4t-large-v2 --smoke --device cpu
 
 A Mamba-2 or jamba prompt must be a multiple of the SSD chunk, or shorter
 than it (the scan's own rule), and is refused before anything runs
@@ -58,10 +63,13 @@ def main(argv=None):
     max_len = S0 + args.gen
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab_size, (B, S0), generator=gen, device=dev)
+    batch = {"tokens": prompts}
+    if cfg.enc_layers:      # the audio frontend stub's frames, one per prompt token
+        batch["enc_embeds"] = torch.randn((B, S0, cfg.d_model), generator=gen, device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    cache, logits = prefill(cfg, params, {"tokens": prompts})
+    cache, logits = prefill(cfg, params, batch)
     cache = pad_cache(cfg, cache, S0, max_len)
     _sync(dev)
     t_prefill = time.perf_counter() - t0

@@ -8,9 +8,11 @@ many slots exist (0 = as many as ``--devices`` and ``--rescale-at`` need),
 ``--arch`` takes every config the port builds (``configs.list_archs()``:
 the dense yi-6b, yi-9b, starcoder2-7b, minitron-4b and chameleon-34b, the
 granite-moe-3b-a800m MoE, the deepseek-v2-236b MLA + MoE model,
-mamba2-1.3b and the jamba-v0.1-52b hybrid), each with ``--smoke``.  A
-Mamba-2 or jamba ``--seq-len`` must be a multiple of the SSD chunk (8 in
-the smoke configs, 128 at full size) or shorter than it.
+mamba2-1.3b, the jamba-v0.1-52b hybrid and the seamless-m4t-large-v2
+encoder-decoder, whose stream adds ``--seq-len`` float32 encoder frames a
+sequence), each with ``--smoke``.  A Mamba-2 or jamba ``--seq-len`` must
+be a multiple of the SSD chunk (8 in the smoke configs, 128 at full size)
+or shorter than it.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \

@@ -1,7 +1,8 @@
 """Attention mixers (counterpart of ``repro.models.attention``): GQA
-softmax attention (``qk_norm`` included) and DeepSeek-V2 multi-head latent
-attention (MLA), in train, prefill and decode mode, and their caches.
-Layout (B,S,H,hd) throughout.
+softmax attention (``qk_norm`` included; causal, bidirectional as an
+encoder's, or cross-attention over keys and values given from outside) and
+DeepSeek-V2 multi-head latent attention (MLA), in train, prefill and decode
+mode, and their caches.  Layout (B,S,H,hd) throughout.
 
 The cache is a plain dict of tensors, written in place: prefill writes the
 prompt's entries, a decode step the new token's at ``pos``.  GQA caches keys
@@ -54,16 +55,37 @@ def _grouped_attention(q, k, v, *, causal: bool, q_pos0: int, scale: float,
 
 
 def attn_forward(cfg: ModelConfig, p: dict, x, *, positions, mode: str = "train",
-                 cache: Optional[dict] = None, pos: Optional[int] = None):
-    """x: (B,S,D) -> (y (B,S,D), cache).  Causal self-attention.
+                 cache: Optional[dict] = None, pos: Optional[int] = None,
+                 kv_override=None, causal: bool = True):
+    """x: (B,S,D) -> (y (B,S,D), cache).
 
-    train: through the flash kernel (the plain version for CPU tensors); no
-    cache.  prefill: the same, and the prompt's k/v are written into
-    ``cache[:, :S]``.  decode: k/v are written at ``pos`` and the queries
-    attend over the cache's first ``pos + S`` entries (``_grouped_attention``,
-    outside any kernel, as in the reference)."""
+    Self-attention (``kv_override`` None): q and k get RoPE (after
+    ``qk_norm``).  train: causal through the flash kernel (the plain version
+    for CPU tensors), or bidirectional (``causal=False``, the encoder's)
+    through the blocked twin, as the reference takes flash only for causal
+    self-attention; no cache.  prefill: the same, and the prompt's k/v are
+    written into ``cache[:, :S]``.  decode: k/v are written at ``pos`` and
+    the queries attend over the cache's first ``pos + S`` entries
+    (``_grouped_attention``, outside any kernel, as in the reference).
+
+    Cross-attention: ``kv_override=(k, v)``, keys and values already
+    projected from the encoder's output (or read from the cross cache), taken
+    as given, with no RoPE and no ``qk_norm``; q gets RoPE only when
+    ``causal``.  train and prefill attend through the blocked twin, decode
+    through ``_grouped_attention`` over all of k and v; ``cache`` is
+    returned untouched."""
     S = x.shape[1]
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    scale = cfg.resolved_head_dim ** -0.5
+    if kv_override is not None:
+        k, v = kv_override
+        if causal:
+            q = apply_rope(q, positions, cfg.rope_theta)
+        if mode == "decode":
+            out = _grouped_attention(q, k, v, causal=causal, q_pos0=pos, scale=scale)
+        else:
+            out = blocked_attention(q, k, v, causal, scale)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qk_norm:          # the plain rmsnorm over the head dim, as the reference's
@@ -71,17 +93,19 @@ def attn_forward(cfg: ModelConfig, p: dict, x, *, positions, mode: str = "train"
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    scale = cfg.resolved_head_dim ** -0.5
     if mode == "decode":
         cache["k"][:, pos:pos + S] = k
         cache["v"][:, pos:pos + S] = v
-        out = _grouped_attention(q, cache["k"], cache["v"], causal=True,
+        out = _grouped_attention(q, cache["k"], cache["v"], causal=causal,
                                  q_pos0=pos, scale=scale, kv_len=pos + S)
     else:
         if mode == "prefill":
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
-        out = ops.flash_attention(q, k, v, causal=True, scale=scale)
+        if causal:
+            out = ops.flash_attention(q, k, v, causal=True, scale=scale)
+        else:
+            out = blocked_attention(q, k, v, False, scale)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
 
 

@@ -1,5 +1,5 @@
 """Public model API of the port (counterpart of ``repro.models.model``) for
-the decoders the port builds:
+every layout of the JAX package, decoders and the encoder-decoder:
 
 - ``loss_fn`` / ``forward_hidden``: the training forward;
 - ``make_cache``, ``prefill``, ``pad_cache`` and ``decode_step``: serving, a
@@ -7,7 +7,9 @@ the decoders the port builds:
   against a fixed-size cache, written in place.
 
 Batch convention: ``tokens`` and ``labels`` are (B, S) integer tensors on the
-parameters' device, label -1 = masked.  Decode: tokens (B, 1), an int
+parameters' device, label -1 = masked; an encoder-decoder model adds
+``enc_embeds`` (B, S_enc, d_model), the audio frontend stub's frames, cast
+to the parameters' dtype on entry.  Decode: tokens (B, 1), an int
 ``pos`` and the cache, whose keys, shapes and dtypes are those of
 ``repro.checkpoint.reshard.flatten_tree`` of the reference's cache.
 """
@@ -25,21 +27,33 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import init_kv_cache, init_mla_cache
 from repro_torch.models.layers import chunked_softmax_xent, rmsnorm
 from repro_torch.models.moe import balance_loss
-from repro_torch.models.params import (_refuse_unported, from_numpy_flat,
-                                       init_params, param_count, param_shapes,
-                                       param_specs, to_numpy_flat)
+from repro_torch.models.params import (from_numpy_flat, init_params,
+                                       param_count, param_shapes, param_specs,
+                                       to_numpy_flat)
 from repro_torch.models.ssm import init_ssm_cache
 
 LOSS_CHUNK = 512
 
 
+def _encode(cfg: ModelConfig, params, batch, mode: str):
+    """The encoder's output over ``batch["enc_embeds"]`` cast to the
+    parameters' dtype, or None for a model without an encoder."""
+    if not cfg.enc_layers:
+        return None
+    enc_in = batch["enc_embeds"].to(params["embed"].dtype)
+    positions = torch.arange(enc_in.shape[1], device=enc_in.device)
+    return tfm.encoder(cfg, params["encoder"], enc_in, positions=positions, mode=mode)
+
+
 def forward_hidden(cfg: ModelConfig, params, batch):
-    """Embeds and runs the decoder; returns (the final-normed hidden (B,S,D),
-    the MoE layers' ``balance_stats`` sums)."""
+    """Embeds and runs the encoder (if any) and the decoder; returns (the
+    final-normed hidden (B,S,D), the MoE layers' ``balance_stats`` sums)."""
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    enc_out = _encode(cfg, params, batch, "train")
     x = params["embed"][tokens]
-    x, _, moe_stats = tfm.decoder(cfg, params["decoder"], x, positions=positions)
+    x, _, moe_stats = tfm.decoder(cfg, params["decoder"], x, positions=positions,
+                                  enc_out=enc_out)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), moe_stats
 
 
@@ -85,38 +99,45 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, dict]:
 # ---------------------------------------------------------------------------
 
 def _layer_cache(cfg: ModelConfig, i: int, batch: int, max_len: int, dtype,
-                 device) -> dict:
+                 device, enc_len: int) -> dict:
     mixer = cfg.mixer_at(i)
     if mixer == ATTN:
-        return {"kv": init_kv_cache(cfg, batch, max_len, dtype, device)}
-    if mixer == MLA:
-        return {"kv": init_mla_cache(cfg, batch, max_len, dtype, device)}
-    if mixer == SSM:
-        return {"ssm": init_ssm_cache(cfg, batch, dtype, device)}
-    raise ValueError(mixer)
+        c = {"kv": init_kv_cache(cfg, batch, max_len, dtype, device)}
+    elif mixer == MLA:
+        c = {"kv": init_mla_cache(cfg, batch, max_len, dtype, device)}
+    elif mixer == SSM:
+        c = {"ssm": init_ssm_cache(cfg, batch, dtype, device)}
+    else:
+        raise ValueError(mixer)
+    if cfg.enc_layers:
+        cross = init_kv_cache(cfg, batch, enc_len, dtype, device)
+        c["cross"] = {"ck": cross["k"], "cv": cross["v"]}
+    return c
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
-               device="cuda") -> dict:
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len: int = 0,
+               dtype=None, device="cuda") -> dict:
     """A zeroed cache for ``batch`` sequences of up to ``max_len`` tokens:
     ``{"prefix": {"layer{i}": layer cache}, "blocks": {"sub{j}": layer
     ``prefix + j``'s cache with a leading block axis}}``, each part present
     where the model has such layers (a hybrid block holds both kinds); a
     layer cache is ``{"kv": {"k", "v"}}`` (GQA), ``{"kv": {"ckv",
-    "krope"}}`` (MLA) or ``{"ssm": {"conv", "h"}}``; ``h`` is float32, the
-    rest ``dtype`` (the model's by default)."""
-    _refuse_unported(cfg)
+    "krope"}}`` (MLA) or ``{"ssm": {"conv", "h"}}``, and in an
+    encoder-decoder model also ``{"cross": {"ck", "cv"}}``, the encoder's
+    projected keys and values, (batch, ``enc_len``, kv heads, head dim);
+    ``h`` is float32, the rest ``dtype`` (the model's by default)."""
     prefix, n = cfg.scan_layers()
     period = cfg.layer_period()
     dtype = dtype or getattr(torch, cfg.dtype)
     cache = {}
     if prefix:
-        cache["prefix"] = {f"layer{i}": _layer_cache(cfg, i, batch, max_len, dtype, device)
+        cache["prefix"] = {f"layer{i}": _layer_cache(cfg, i, batch, max_len, dtype,
+                                                     device, enc_len)
                            for i in range(prefix)}
     if n:
         cache["blocks"] = {}
         for j in range(period):
-            layer = _layer_cache(cfg, prefix + j, batch, max_len, dtype, device)
+            layer = _layer_cache(cfg, prefix + j, batch, max_len, dtype, device, enc_len)
             cache["blocks"][f"sub{j}"] = nest_flat(
                 {k: t.expand(n // period, *t.shape).contiguous()
                  for k, t in flatten_tree(layer).items()})
@@ -125,17 +146,21 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None,
 
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params, batch):
-    """Run the prompt; returns (cache at the prompt's length, last-token
-    logits[:, :vocab_size] in float32).  The cache is allocated once,
-    stacked, and each layer writes its slice; the caller pads it to
+    """Run the prompt (and, in an encoder-decoder model, the encoder over
+    ``batch["enc_embeds"]``, whose projected keys and values each layer
+    writes into its cross cache); returns (cache at the prompt's length,
+    last-token logits[:, :vocab_size] in float32).  The cache is allocated
+    once, stacked, and each layer writes its slice; the caller pads it to
     the serving window (``pad_cache``) before ``decode_step``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    cache = make_cache(cfg, B, S, dtype=params["embed"].dtype, device=tokens.device)
+    enc_out = _encode(cfg, params, batch, "prefill")
+    cache = make_cache(cfg, B, S, enc_len=0 if enc_out is None else enc_out.shape[1],
+                       dtype=params["embed"].dtype, device=tokens.device)
     positions = torch.arange(S, device=tokens.device)
     x = params["embed"][tokens]
     x, cache, _ = tfm.decoder(cfg, params["decoder"], x, positions=positions,
-                              mode="prefill", cache=cache, pos=0)
+                              mode="prefill", cache=cache, pos=0, enc_out=enc_out)
     x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)   # row-wise
     logits = torch.matmul(x, _head_weight(cfg, params))
     return cache, logits[:, :cfg.vocab_size].float()
@@ -149,7 +174,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     Unlike the reference, which returns a new cache pytree, this writes the
     new token's keys and values (or conv window and state) into ``cache`` in
     place and returns that same cache: a copy of yi-6b's 2.2 GB cache each
-    step would cost more than the step."""
+    step would cost more than the step.  An encoder-decoder model's cross
+    blocks read the cross cache prefill wrote; the encoder does not run."""
     positions = torch.arange(pos, pos + tokens.shape[1], device=tokens.device)
     x = params["embed"][tokens]
     x, cache, _ = tfm.decoder(cfg, params["decoder"], x, positions=positions,
@@ -165,7 +191,8 @@ def pad_cache(cfg: ModelConfig, cache, prompt_len: int, max_len: int):
     window, as the reference does: only leaves under a ``kv`` key are padded,
     at the end of the sequence axis, which is 2 under ``blocks`` (axis 0 is
     the stacked layers) and 1 elsewhere (the prefix layers), whatever the
-    leaf's rank; SSM states and conv windows are returned as they are."""
+    leaf's rank; SSM states, conv windows and the cross cache (``cross``)
+    are returned as they are."""
     if max_len == prompt_len:
         return cache
     flat = flatten_tree(cache)

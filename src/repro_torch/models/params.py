@@ -1,10 +1,13 @@
 """Parameter specs and initialisation (counterpart of
-``repro.models.params`` for the decoders the port builds: GQA attention with
-or without ``qk_norm``, DeepSeek-V2 MLA, SwiGLU, GELU, squared-ReLU or MoE
-FFNs, and Mamba-2, alone or mixed in one period as jamba mixes them; the
+``repro.models.params`` for every layout of the JAX package: GQA attention
+with or without ``qk_norm``, DeepSeek-V2 MLA, SwiGLU, GELU, squared-ReLU or
+MoE FFNs, and Mamba-2, alone or mixed in one period as jamba mixes them; the
 prefix layers (``first_dense``, and a depth's remainder modulo the layer
 period) unstacked at ``decoder/prefix/layer{i}``, the rest stacked in blocks
-of one period, ``decoder/blocks/sub{j}`` for j < ``cfg.layer_period()``).
+of one period, ``decoder/blocks/sub{j}`` for j < ``cfg.layer_period()``; an
+encoder-decoder model adds a cross-attention block (``cross_norm``,
+``cross``) to every decoder layer and a bidirectional encoder, its layers
+stacked at ``encoder/blocks`` beside ``encoder/final_norm``).
 
 Shapes and the ``/``-joined flat keys equal
 ``repro.checkpoint.reshard.flatten_tree(repro.models.params.init_params(cfg,
@@ -120,7 +123,7 @@ def _moe_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-def _layer_specs(cfg: ModelConfig, i: int) -> dict:
+def _layer_specs(cfg: ModelConfig, i: int, *, cross_attn: bool = False) -> dict:
     d = cfg.d_model
     mixer = cfg.mixer_at(i)
     s = {"mixer_norm": ParamSpec((d,), "ones")}
@@ -132,6 +135,9 @@ def _layer_specs(cfg: ModelConfig, i: int) -> dict:
         s["mixer"] = _ssm_specs(cfg)
     else:
         raise ValueError(mixer)
+    if cross_attn:
+        s["cross_norm"] = ParamSpec((d,), "ones")
+        s["cross"] = _attn_specs(cfg)
     ff = cfg.ff_at(i)
     if ff != FF_NONE:
         s["ff_norm"] = ParamSpec((d,), "ones")
@@ -146,14 +152,7 @@ def _stack(tree, n: int):
     return ParamSpec((n,) + tree.shape, tree.init, tree.fan_in or tree.shape[0])
 
 
-def _refuse_unported(cfg: ModelConfig) -> None:
-    """Layouts whose family is not ported yet, each with its ROADMAP item."""
-    if cfg.enc_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models wait for ROADMAP A.4(f)")
-
-
-def _decoder_specs(cfg: ModelConfig) -> dict:
+def _decoder_specs(cfg: ModelConfig, *, cross_attn: bool) -> dict:
     """The prefix layers unstacked; the rest in blocks of one layer period,
     sub-layer j of every block stacked on a leading block axis as
     ``sub{j}``, built as layer ``prefix + j`` (the index that picks its
@@ -162,23 +161,39 @@ def _decoder_specs(cfg: ModelConfig) -> dict:
     period = cfg.layer_period()
     s = {}
     if prefix:
-        s["prefix"] = {f"layer{i}": _layer_specs(cfg, i) for i in range(prefix)}
+        s["prefix"] = {f"layer{i}": _layer_specs(cfg, i, cross_attn=cross_attn)
+                       for i in range(prefix)}
     if n:
-        s["blocks"] = {f"sub{j}": _stack(_layer_specs(cfg, prefix + j), n // period)
+        s["blocks"] = {f"sub{j}": _stack(_layer_specs(cfg, prefix + j,
+                                                      cross_attn=cross_attn),
+                                         n // period)
                        for j in range(period)}
     return s
 
 
+def _encoder_layer_specs(cfg: ModelConfig) -> dict:
+    """Encoder layer: bidirectional self-attention + dense FFN."""
+    d = cfg.d_model
+    return {
+        "mixer_norm": ParamSpec((d,), "ones"),
+        "mixer": _attn_specs(cfg),
+        "ff_norm": ParamSpec((d,), "ones"),
+        "ff": _ffn_specs(cfg, cfg.ff_kind, cfg.d_ff),
+    }
+
+
 def param_specs(cfg: ModelConfig) -> dict:
-    _refuse_unported(cfg)
     d = cfg.d_model
     s = {
         "embed": ParamSpec((cfg.padded_vocab, d), fan_in=d),
         "final_norm": ParamSpec((d,), "ones"),
-        "decoder": _decoder_specs(cfg),
+        "decoder": _decoder_specs(cfg, cross_attn=cfg.enc_layers > 0),
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((d, cfg.padded_vocab))
+    if cfg.enc_layers:
+        s["encoder"] = {"blocks": _stack(_encoder_layer_specs(cfg), cfg.enc_layers),
+                        "final_norm": ParamSpec((d,), "ones")}
     return s
 
 

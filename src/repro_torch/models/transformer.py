@@ -1,6 +1,9 @@
-"""Decoder stack (counterpart of ``repro.models.transformer``): each layer's
-mixer is GQA attention, MLA or the Mamba-2 SSD block, and its FFN dense, MoE
-or none, as ``cfg.mixer_at`` / ``cfg.ff_at`` say.
+"""Decoder and encoder stacks (counterpart of ``repro.models.transformer``):
+each decoder layer's mixer is GQA attention, MLA or the Mamba-2 SSD block,
+and its FFN dense, MoE or none, as ``cfg.mixer_at`` / ``cfg.ff_at`` say; in
+an encoder-decoder model a cross-attention block over the encoder's output
+sits between them, and the encoder (bidirectional attention and a dense FFN
+a layer, ``encoder``) runs first.
 
 The prefix layers (``first_dense``, and a depth's remainder modulo the
 layer period, ``cfg.scan_layers()``) run first, one by one, with unstacked
@@ -9,7 +12,8 @@ parameters (``decoder/prefix/layer{i}/...``) and caches
 layer period (1, or 8 for jamba's hybrid), as the reference scans them:
 sub-layer j of every block is stacked with a leading block axis
 (``decoder/blocks/sub{j}/...``), and so is its serving cache
-(``blocks/sub{j}/{kv: {k, v} | {ckv, krope}} | {ssm: {conv, h}}``); block b
+(``blocks/sub{j}/{kv: {k, v} | {ckv, krope}} | {ssm: {conv, h}}``, with
+``cross: {ck, cv}`` beside it in an encoder-decoder model); block b
 runs sub0 .. sub{period-1}, and sub j is layer ``prefix + j`` to
 ``cfg.mixer_at`` / ``cfg.ff_at``, as in the reference.  A depth may have no
 stacked layers at all.  In train mode each layer, prefix layers included,
@@ -24,10 +28,11 @@ An MLA layer decodes through the W_UK-absorbed form and trains and
 prefills through the expanded one, as the reference's ``_MLA_ABSORB``
 defaults say (``set_mla_absorb`` changes them).
 
-The block axis of each ``sub{j}`` is split once, by ``_split_layers``, for
-every caller: a stacked leaf that takes a gradient gets per-block leaves
-whose hooks add into its ``.grad``; a cache leaf gets per-block views, so a
-layer's in-place writes land in the stacked cache.
+The block axis of each ``sub{j}`` (and the encoder's layer axis) is split
+once, by ``_split_layers``, for every caller: a stacked leaf that takes a
+gradient gets per-block leaves whose hooks add into its ``.grad``; a cache
+leaf gets per-block views, so a layer's in-place writes land in the stacked
+cache.
 
 Where the reference sums each MoE layer's aux loss, the port returns each
 MoE layer's ``moe.balance_stats`` sums: the loss is formed from them
@@ -58,10 +63,17 @@ def set_mla_absorb(mode: str, value: bool):
 
 def apply_layer(cfg: ModelConfig, p: dict, x, layer_idx: int, *, positions,
                 mode: str = "train", cache: Optional[dict] = None,
-                pos: Optional[int] = None):
-    """RMSNorm -> mixer -> residual [-> RMSNorm -> FFN -> residual].
-    Returns (x, the layer's cache ({"kv": ...} or {"ssm": ...}, updated in
-    place; None in train mode), the MoE layer's (psum, counts) or None)."""
+                pos: Optional[int] = None, enc_out=None):
+    """RMSNorm -> mixer -> residual [-> RMSNorm -> cross-attention ->
+    residual] [-> RMSNorm -> FFN -> residual].  Returns (x, the layer's
+    cache ({"kv": ...} or {"ssm": ...}, and {"cross": ...} in an
+    encoder-decoder model, updated in place; None in train mode), the MoE
+    layer's (psum, counts) or None).
+
+    The cross block (a layer with ``cross`` parameters) projects the keys
+    and values of ``enc_out`` (B, S_enc, D) with ``cross/wk``, ``cross/wv``
+    in train and prefill (prefill writes them into ``cache["cross"]``'s
+    ``ck``, ``cv``) and reads them from the cache in decode."""
     mixer = cfg.mixer_at(layer_idx)
     h = rmsnorm(x, p["mixer_norm"], cfg.norm_eps)
     if mixer == ATTN:
@@ -77,6 +89,19 @@ def apply_layer(cfg: ModelConfig, p: dict, x, layer_idx: int, *, positions,
     else:
         raise ValueError(mixer)
     x = x + y
+    if "cross" in p:
+        h = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+        if mode == "decode":
+            kv = (cache["cross"]["ck"], cache["cross"]["cv"])
+        else:
+            kv = (torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wk"]),
+                  torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wv"]))
+            if mode == "prefill":
+                cache["cross"]["ck"].copy_(kv[0])
+                cache["cross"]["cv"].copy_(kv[1])
+        y, _ = attn_forward(cfg, p["cross"], h, positions=positions, mode=mode,
+                            pos=pos, kv_override=kv, causal=False)
+        x = x + y
     ff = cfg.ff_at(layer_idx)
     stats = None
     if ff != FF_NONE:
@@ -128,10 +153,13 @@ def _split_layers(tree, n: int):
 
 
 def decoder(cfg: ModelConfig, dparams: dict, x, *, positions, mode: str = "train",
-            cache: Optional[dict] = None, pos: Optional[int] = None):
+            cache: Optional[dict] = None, pos: Optional[int] = None, enc_out=None):
     """(x, cache, [(psum, counts) of each MoE layer, in layer order]).
     Prefill and decode take the cache of ``model.make_cache`` and write it
-    in place."""
+    in place.  ``enc_out``: the encoder's output, which every layer's cross
+    block attends to in train and prefill (decode reads the cross cache);
+    in train mode it is an argument of each layer's checkpoint, so the
+    encoder's gradients flow back through it."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {MODES}")
     prefix, n = cfg.scan_layers()
@@ -151,11 +179,39 @@ def decoder(cfg: ModelConfig, dparams: dict, x, *, positions, mode: str = "train
     moe_stats = []
     for i, lp, c in layers:
         if mode == "train":
-            x, _, stats = checkpoint(apply_layer, cfg, lp, x, i,
-                                     positions=positions, use_reentrant=False)
+            x, _, stats = checkpoint(apply_layer, cfg, lp, x, i, positions=positions,
+                                     enc_out=enc_out, use_reentrant=False)
         else:
             x, _, stats = apply_layer(cfg, lp, x, i, positions=positions,
-                                      mode=mode, cache=c, pos=pos)
+                                      mode=mode, cache=c, pos=pos, enc_out=enc_out)
         if stats is not None:
             moe_stats.append(stats)
     return x, cache, moe_stats
+
+
+def encoder_layer(cfg: ModelConfig, p: dict, x, positions):
+    """RMSNorm -> bidirectional self-attention (RoPE on q and k, the blocked
+    twin) -> residual -> RMSNorm -> dense FFN -> residual."""
+    h = rmsnorm(x, p["mixer_norm"], cfg.norm_eps)
+    y, _ = attn_forward(cfg, p["mixer"], h, positions=positions, mode="train",
+                        causal=False)
+    x = x + y
+    h = rmsnorm(x, p["ff_norm"], cfg.norm_eps)
+    return x + apply_ffn(p["ff"], h, cfg.ff_kind)
+
+
+def encoder(cfg: ModelConfig, eparams: dict, x, *, positions, mode: str = "train"):
+    """The encoder stack (counterpart of the reference's ``encoder``) over
+    frame embeddings x (B, S_enc, D): the stacked ``encoder/blocks`` split
+    into per-layer leaves by ``_split_layers``, each layer under its own
+    checkpoint in train mode, then the final RMSNorm.  Its attention runs
+    in train mode whatever ``mode`` is, as the reference's does: the
+    encoder never touches a cache."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {MODES}")
+    for lp in _split_layers(eparams["blocks"], cfg.enc_layers):
+        if mode == "train":
+            x = checkpoint(encoder_layer, cfg, lp, x, positions, use_reentrant=False)
+        else:
+            x = encoder_layer(cfg, lp, x, positions)
+    return rmsnorm(x, eparams["final_norm"], cfg.norm_eps)

@@ -114,6 +114,16 @@ def test_flash_kernel_at_jambas_group_on_card(dtype, B, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(1, 2048), (2, 300)])
+def test_flash_kernel_at_seamless_heads_on_card(dtype, B, S):
+    """seamless-m4t-large-v2's decoder self-attention: 16 query heads over
+    16 KV heads of 64 (group 1), causal, at its serving prompt and off the
+    tiles."""
+    _flash_against_plain(_card(), dtype, B, S, 16, 16, 64, True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S,hd", [(96, 32), (1000, 128)])
 def test_flash_kernel_non_causal_bf16_on_card(S, hd):
     _flash_against_plain(_card(), "bfloat16", 2, S, 8, 2, hd, False)
@@ -423,12 +433,14 @@ def test_moe_forward_on_card_matches_the_cpu(impl):
         torch.testing.assert_close(b.cpu(), a, atol=tol, rtol=tol)
 
 
-def _serve(cfg, params, tokens, prompt, steps):
-    """Prefill, pad to the window, ``steps`` decode steps fed the known
-    tokens; returns ([prefill logits, decode logits...], the cache, the
-    launch counts the prefill added, those the decode steps added)."""
+def _serve(cfg, params, tokens, prompt, steps, frames=None):
+    """Prefill (an encoder-decoder's encoder over ``frames``), pad to the
+    window, ``steps`` decode steps fed the known tokens; returns ([prefill
+    logits, decode logits...], the cache, the launch counts the prefill
+    added, those the decode steps added)."""
     before = ops.launch_counts()
-    cache, logits = M.prefill(cfg, params, {"tokens": tokens[:, :prompt]})
+    extra = {} if frames is None else {"enc_embeds": frames}
+    cache, logits = M.prefill(cfg, params, {"tokens": tokens[:, :prompt], **extra})
     after = ops.launch_counts()
     cache = M.pad_cache(cfg, cache, prompt, prompt + steps)
     out = [logits]
@@ -586,3 +598,72 @@ def test_jamba_train_step_on_card_matches_the_cpu():
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "flash_attention": 2 * 2 * 2, "pack": 0, "rmsnorm": 0, "ssd": 2 * 2 * 2 * 7}
+
+
+@pytest.mark.cuda
+def test_seamless_serving_on_card_matches_the_cpu():
+    """The seamless smoke model (2 encoder and 2 decoder layers) served on
+    the card against the CPU from the same parameters, tokens and encoder
+    frames: a prefill of 16 tokens over 12 frames, then 4 decode steps;
+    logits and every cache leaf (the cross cache included) within 2e-5; a
+    prefill launches flash once a decoder layer (the encoder's and the
+    cross attention go through the blocked twin), a decode step none."""
+    dev = _card()
+    cfg = smoke_config("seamless-m4t-large-v2").with_(dtype="float32")
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20)))
+    frames = torch.from_numpy(rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32))
+    want, want_cache, cpu_prefill, cpu_decode = _serve(cfg, params, tokens, 16, 4, frames)
+    assert not any(cpu_prefill.values()) and not any(cpu_decode.values())
+    card_params = M.from_numpy_flat(M.to_numpy_flat(params), device=dev)
+    got, cache, prefill, decode = _serve(cfg, card_params, tokens.to(dev), 16, 4,
+                                         frames.to(dev))
+    assert prefill == {"flash_attention": cfg.num_layers, "pack": 0, "rmsnorm": 0, "ssd": 0}
+    assert not any(decode.values())
+    for a, b in zip(want, got):
+        torch.testing.assert_close(b.cpu(), a, atol=2e-5, rtol=2e-5)
+    want_flat, got_flat = flatten_tree(want_cache), flatten_tree(cache)
+    assert list(got_flat) == list(want_flat)
+    assert got_flat["blocks/sub0/cross/ck"].shape == (cfg.num_layers, 2, 12, 4, 16)
+    for k, a in want_flat.items():
+        torch.testing.assert_close(got_flat[k].cpu(), a, atol=2e-5, rtol=2e-5, msg=k)
+
+
+@pytest.mark.cuda
+def test_seamless_train_step_on_card_matches_the_cpu():
+    """The seamless smoke model on the card against the CPU from the same
+    parameters: the loss and every gradient (the encoder's included) of the
+    trainers' first global batch (2e-5, 1e-4), then one trainer step at R=2
+    (loss within 2e-5, grad norm within 1e-4), each replica's forward and
+    recompute launching flash once a decoder layer."""
+    dev = _card()
+    cfg = smoke_config("seamless-m4t-large-v2")
+    job = TrainJobConfig(global_batch=8, seq_len=32, total_steps=4, seed=3)
+    cpu = ElasticTrainer(cfg, job, local_slots(2), device="cpu")
+    card = ElasticTrainer(cfg, job, local_slots(2), device=dev)
+    with torch.no_grad():
+        for k, t in flatten_tree(card.params).items():
+            t.copy_(flatten_tree(cpu.params)[k])
+    batch0 = cpu.stream.global_batch_at(0)
+    assert batch0["enc_embeds"].dtype == np.float32
+    grads = {}
+    for where in ("cpu", dev):
+        params = M.from_numpy_flat(M.to_numpy_flat(cpu.params), device=where)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in batch0.items()}
+        batch["tokens"], batch["labels"] = batch["tokens"].long(), batch["labels"].long()
+        loss, _ = M.loss_fn(cfg, params, batch)
+        loss.backward()
+        grads[str(where)] = [loss.detach()] + [t.grad for t in flatten_tree(params).values()]
+    assert any(k.startswith("encoder/") for k in flatten_tree(cpu.params))
+    for i, (a, b) in enumerate(zip(grads["cpu"], grads[str(dev)])):
+        tol = 2e-5 if i == 0 else 1e-4
+        torch.testing.assert_close(b.cpu(), a, atol=tol, rtol=tol)
+    before = ops.launch_counts()
+    want, got = cpu.step(), card.step()
+    torch.cuda.synchronize()
+    for k, tol in (("loss", 2e-5), ("grad_norm", 1e-4)):
+        assert abs(got[k] - want[k]) <= tol * max(1.0, abs(want[k])), (k, got[k], want[k])
+    after = ops.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "flash_attention": 2 * 2 * cfg.num_layers, "pack": 0, "rmsnorm": 0, "ssd": 0}

@@ -94,6 +94,11 @@ MLA_MODULES = {"repro_torch.kernels.blocked", "repro_torch.configs.deepseek_v2_2
 # the hybrid layout: jamba-v0.1-52b's config
 HYBRID_MODULES = {"repro_torch.configs.jamba_v0_1_52b"}
 
+# the encoder-decoder layout: seamless-m4t-large-v2's config and the data
+# stream that carries its encoder frames
+ENCDEC_MODULES = {"repro_torch.configs.seamless_m4t_large_v2",
+                  "repro_torch.data", "repro_torch.data.pipeline"}
+
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -101,7 +106,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 77, proc.stdout
+    assert n >= 78, proc.stdout
     names = set(proc.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
     assert OPERATOR_MODULES <= names, sorted(OPERATOR_MODULES - names)
     assert SIMULATOR_MODULES <= names, sorted(SIMULATOR_MODULES - names)
@@ -111,3 +116,4 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert SERVE_MODULES <= names, sorted(SERVE_MODULES - names)
     assert MLA_MODULES <= names, sorted(MLA_MODULES - names)
     assert HYBRID_MODULES <= names, sorted(HYBRID_MODULES - names)
+    assert ENCDEC_MODULES <= names, sorted(ENCDEC_MODULES - names)

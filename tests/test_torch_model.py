@@ -1,17 +1,15 @@
 """The PyTorch port's models against the JAX package on the CPU: the dense
 yi-6b, yi-9b, starcoder2-7b (GELU), minitron-4b (squared ReLU) and
 chameleon-34b (qk_norm) decoders, the granite-moe-3b-a800m MoE, the
-deepseek-v2-236b MLA + MoE model, Mamba-2 mamba2-1.3b and the
-jamba-v0.1-52b hybrid: configs, data stream, parameter keys and shapes,
-parameter counts, the init distributions, loss (aux included) and every
-gradient; and the refusal of the encoder-decoder layout, whose family is
-not ported yet.
+deepseek-v2-236b MLA + MoE model, Mamba-2 mamba2-1.3b, the jamba-v0.1-52b
+hybrid and the seamless-m4t-large-v2 encoder-decoder: configs, data
+stream, parameter keys and shapes, parameter counts, the init
+distributions, loss (aux included) and every gradient.
 
 The JAX smoke parameters are carried across with ``from_numpy_flat``;
 tolerances are the reference's (loss 2e-5, gradients 1e-4)."""
 import dataclasses
 import math
-import re
 
 import numpy as np
 import pytest
@@ -29,15 +27,14 @@ from repro.data import make_stream as jmake_stream  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.checkpoint.reshard import flatten_tree  # noqa: E402
-from repro_torch.configs import (MLAConfig, ModelConfig, MoEConfig,  # noqa: E402
-                                 SSMConfig, get_config, list_archs,
-                                 smoke_config)
+from repro_torch.configs import get_config, list_archs, smoke_config  # noqa: E402
 from repro_torch.data import make_stream  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 ARCHS = ["yi-6b", "mamba2-1.3b", "granite-moe-3b-a800m", "yi-9b", "starcoder2-7b",
-         "minitron-4b", "chameleon-34b", "deepseek-v2-236b", "jamba-v0.1-52b"]
+         "minitron-4b", "chameleon-34b", "deepseek-v2-236b", "jamba-v0.1-52b",
+         "seamless-m4t-large-v2"]
 FIELDS = ("name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
           "d_ff", "vocab_size", "resolved_head_dim", "padded_vocab", "rope_theta",
           "norm_eps", "ff_kind", "dtype", "vocab_pad_to", "default_mixer",
@@ -51,20 +48,12 @@ FULL_SIZE = {"granite-moe-3b-a800m": (3_299_182_080, 881_690_112),
              "minitron-4b": (4_190_309_376, 4_190_309_376),
              "chameleon-34b": (34_293_436_416, 34_293_436_416),
              "deepseek-v2-236b": (235_741_434_880, 21_329_280_000),
-             "jamba-v0.1-52b": (51_460_000_640, 11_999_071_104)}
+             "jamba-v0.1-52b": (51_460_000_640, 11_999_071_104),
+             "seamless-m4t-large-v2": (1_369_827_328, 1_369_827_328)}
 # deepseek-v2-236b at full width cut in depth: (layers, parameters, active)
 DEEPSEEK_DEPTHS = [(1, 1_386_562_560, 1_386_562_560),       # the dense prefix layer
                    (2, 5_358_679_040, 1_724_574_720),
                    (4, 13_302_912_000, 2_400_599_040)]
-
-
-def _port_config(jcfg):
-    """The port's ModelConfig with every field of a JAX package config."""
-    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ModelConfig)}
-    for name, cls in (("moe", MoEConfig), ("mla", MLAConfig), ("ssm", SSMConfig)):
-        if kw[name] is not None:
-            kw[name] = cls(**dataclasses.asdict(kw[name]))
-    return ModelConfig(**kw)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -119,16 +108,6 @@ def test_full_size_param_counts_equal_reference(arch):
     assert M.count_active_params(cfg) == jcount_active(jcfg) == active
     assert M.param_shapes(cfg) == {k: v.shape for k, v in jflatten(
         jax.eval_shape(lambda: JM.init_params(jcfg, jax.random.PRNGKey(0)))).items()}
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("seamless-m4t-large-v2", "A.4(f)")])      # encoder-decoder
-def test_unported_layouts_are_refused_with_their_roadmap_item(arch, item):
-    cfg = _port_config(jget_config(arch))
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
-        M.param_specs(cfg)
-    with pytest.raises(NotImplementedError):
-        M.init_params(cfg, 0, device="cpu")
 
 
 @pytest.mark.parametrize("layers,total,active", DEEPSEEK_DEPTHS)
@@ -242,7 +221,9 @@ def test_loss_and_every_gradient_match_jax(smoke):
     (jloss, jm), jgrads = jax.value_and_grad(
         lambda p: JM.loss_fn(jcfg, p, jbatch), has_aux=True)(jparams)
     params = M.from_numpy_flat(flat, device="cpu")
-    tbatch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    # tokens and labels as long; an encoder-decoder's frames stay float32
+    tbatch = {k: torch.from_numpy(v) if v.dtype.kind == "f" else torch.from_numpy(v).long()
+              for k, v in batch.items()}
     loss, m = M.loss_fn(cfg, params, tbatch)
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=2e-5, rtol=2e-5)

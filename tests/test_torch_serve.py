@@ -3,7 +3,9 @@ last-token logits and every cache leaf, decode steps, a decode step from the
 reference's own prefill cache, and decode against the port's own teacher
 forcing, for the dense (SwiGLU, GELU, qk_norm), MoE, Mamba-2 and hybrid layouts;
 the pieces (``_grouped_attention``, ``ssd_final_state``, ``make_cache``,
-``pad_cache``); the analytic FLOP models; and the ``launch.serve`` CLI.
+``pad_cache``, the encoder-decoder's cross cache); the analytic FLOP
+models; and the ``launch.serve`` CLI.  The encoder-decoder's serving
+parity is in ``tests/test_torch_encdec.py``.
 
 The reference runs as its own CPU tests run it (Pallas off: blocked
 attention and the jnp SSD), with ``jax.jit`` on ``prefill`` and
@@ -233,12 +235,30 @@ def test_make_and_pad_cache_match_the_references_keys_shapes_and_dtypes(arch, dt
         assert ours["blocks/sub0/kv/k"][0][2] == 9
 
 
-def test_unported_layouts_have_no_cache():
-    """An encoder-decoder config (yi-6b's decoder given an encoder, built by
-    hand: the port registers no such arch) is refused with its item."""
-    cfg = get_config("yi-6b").with_(enc_layers=2)
-    with pytest.raises(NotImplementedError, match=r"A\.4\(f\)"):
-        M.make_cache(cfg, 1, 4, device="cpu")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prompt,window,enc_len", [(5, 5, 7), (5, 9, 3), (4, 6, 4)])
+def test_encoder_decoder_cache_matches_the_references_keys_shapes_and_dtypes(
+        dtype, prompt, window, enc_len):
+    """seamless-m4t-large-v2's smoke cache: every layer's self-attention
+    ``kv`` beside its ``cross`` keys and values, (layers, batch, enc_len, kv
+    heads, head dim), before and after ``pad_cache``, which pads only the
+    ``kv`` leaves (with enc_len == prompt too)."""
+    arch = "seamless-m4t-large-v2"
+    jcfg = jsmoke_config(arch).with_(dtype=dtype)
+    cfg = smoke_config(arch).with_(dtype=dtype)
+    ours = M.make_cache(cfg, 3, prompt, enc_len=enc_len, device="cpu")
+    want = JM.make_cache(jcfg, 3, prompt, enc_len=enc_len)
+    for padded in (False, True):
+        if padded:
+            ours = M.pad_cache(cfg, ours, prompt, window)
+            want = JM.pad_cache(jcfg, want, prompt, window)
+        o = {k: (tuple(v.shape), _np_dtype(v)) for k, v in flatten_tree(ours).items()}
+        w = {k: (v.shape, str(v.dtype)) for k, v in jflatten(want).items()}
+        assert o == w and list(o) == list(w)
+    assert o["blocks/sub0/cross/ck"] == ((2, 3, enc_len, 4, 16), dtype)
+    assert o["blocks/sub0/kv/k"][0] == (2, 3, window, 4, 16)
+    assert M.make_cache(get_config(arch), 1, 4, enc_len=6, device="meta")[
+        "blocks"]["sub0"]["cross"]["cv"].shape == (24, 1, 6, 16, 64)
 
 
 @pytest.mark.parametrize("arch", list_archs())
