@@ -162,7 +162,23 @@ without a CUDA device the script exits non-zero before printing a result:
     against the reference FLOPs (encoder included), decode against the
     byte bound (no encoder weight and no cross ``wk``/``wv``, the cross
     cache read once), idle shares, peak memory under ``SERVE_PEAK``.  (c)
-    Teacher forcing on that serving run, with the same frames.
+    Teacher forcing on that serving run, with the same frames;
+16. the dry-run, ``[dryrun]`` lines (``launch.dryrun`` and
+    ``launch.cells``, nothing allocated on the card): (a) every applicable
+    (arch x shape) cell of ``all_cells()``, 10 archs at their full
+    published sizes, traced on the meta device on the card's 1x1 mesh in
+    spawned worker processes: argument, temp and peak GB, ``fits_hbm``
+    (80 GB), the traced FLOPs (``FlopCounterMode`` and the kernel wrappers'
+    notes) against ``utils.flops.cell_flops``, the H100 roofline's
+    bottleneck and ``mfu_bound``; (b) the per-device argument GB of every
+    cell on the reference's 16x16 and 2x16x16 meshes, from the sharding
+    rules; (c) the live-bytes tracker against the allocator: four reduced
+    cells at full width (seamless-m4t-large-v2 and granite-moe-3b-a800m
+    trained, yi-6b and mamba2-1.3b prefilled, float32, batch 8 x 2048)
+    traced on meta and then run for real under the same tracker, the meta
+    peak within 10% of ``torch.cuda.max_memory_allocated()`` (less what was
+    resident before the cell's arguments), the real runs' flash and SSD
+    launches checked against their layers.
 
 The last lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Each kernel record names the main path
@@ -193,6 +209,7 @@ import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import os
 import re
 import resource
@@ -200,6 +217,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -215,6 +233,7 @@ from repro_torch.checkpoint.reshard import host_tensor  # noqa: E402
 from repro_torch.cloud import (SPOT, AutoscalerConfig, CloudProvider,  # noqa: E402
                                CloudSimulator, NodeAutoscaler, NodePool)
 from repro_torch.configs import ATTN, FF_MOE, SSM, get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import elastic  # noqa: E402
 from repro_torch.core import (ElasticClusterController, ElasticTrainer,  # noqa: E402
                               JobSpec, JobStatus, PolicyConfig,
@@ -229,7 +248,10 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
+from repro_torch.launch import cells as dry_cells  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_card_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.moe import set_moe_impl  # noqa: E402
@@ -241,7 +263,7 @@ from repro_torch.obs.critical_path import reconcile  # noqa: E402
 from repro_torch.obs.spans import render_chains  # noqa: E402
 from repro_torch.obs.timeline import render_last_run  # noqa: E402
 from repro_torch.optim.adamw import adamw_init  # noqa: E402
-from repro_torch.utils.flops import decode_flops, fwd_flops  # noqa: E402
+from repro_torch.utils.flops import cell_flops, decode_flops, fwd_flops  # noqa: E402
 from repro_torch.workloads import (LOADERS, REPLAY_VARIANTS,  # noqa: E402
                                    ReplayConfig, characterize, fixture_path,
                                    google_fleet_trace, replay_cloud,
@@ -386,6 +408,23 @@ JAMBA_SERVE_LAYERS, JAMBA_SERVE_PARAMS = 8, 13_267_656_416
 SEAMLESS = "seamless-m4t-large-v2"
 SEAMLESS_PARAMS = 1_369_827_328
 SERVE_CLI_ARCHS = ("yi-6b", GRANITE, "mamba2-1.3b", DEEPSEEK, JAMBA, SEAMLESS)
+# phase 16: the dry-run.  Every applicable (arch x shape) cell is traced on
+# the meta device at its full published size on the card's 1x1 mesh, in
+# spawned worker processes on the host's cores (a meta trace runs its ops in
+# Python: mamba2-1.3b's train_4k cell alone takes about 90 s); one core stays
+# with the card's real runs.  The tracker's peak is held to the allocator's
+# (max_memory_allocated less what was resident before the cell's
+# arguments) within 10% of the allocator's, on four reduced cells the card
+# runs for real in float32 at batch 8 x 2048, as earlier phases run them:
+# seamless trained as phase 15 and granite as phase 11 (at full size, one
+# global batch a step), yi-6b (32 layers) and mamba2-1.3b (48) prefilled as
+# phase 12
+DRYRUN_WORKERS = 7
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_POD_MESHES = ("pod_16x16", "multipod_2x16x16")
+DRYRUN_REAL = ((SEAMLESS, "train_4k"), ("yi-6b", "prefill_32k"),
+               ("mamba2-1.3b", "prefill_32k"), (GRANITE, "train_4k"))
+DRYRUN_REAL_SHAPE = dict(seq_len=2048, batch=8)
 
 
 def serve_path(arch):
@@ -2134,6 +2173,147 @@ def encdec_phase(card, **kw):
     return full_width_phase(SEAMLESS, "encdec", card, full, full, tf=None, **kw)
 
 
+def reduced_cell(arch, shape_name, cfg, *, seq_len, batch, mesh=None):
+    """``launch.cells.make_cell`` with the cell's ``SHAPES`` entry overridden
+    to ``seq_len`` tokens and ``batch`` sequences (the reference's
+    ``tests/helpers/dryrun_small.py`` does the same)."""
+    s = dry_cells.SHAPES[shape_name]
+    orig = dry_cells.SHAPES
+    dry_cells.SHAPES = dict(orig, **{shape_name: ShapeConfig(s.name, seq_len, batch, s.kind)})
+    try:
+        return dry_cells.make_cell(arch, shape_name, mesh or make_card_mesh(),
+                                   cfg_override=cfg)
+    finally:
+        dry_cells.SHAPES = orig
+
+
+def real_args(cell, seed, device):
+    """Tensors on ``device`` for a train or prefill cell's abstract
+    arguments: ``init_params``'s parameters, AdamW's zeros and step 0 in
+    train, tokens and labels below the vocabulary and normal frames."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cfg = cell.cfg
+
+    def batch_of(spec):
+        return {k: (torch.randint(0, cfg.vocab_size, t.shape, generator=gen, device=device)
+                    if t.dtype == torch.long else
+                    torch.randn(t.shape, generator=gen, device=device).to(t.dtype))
+                for k, t in spec.items()}
+    params = M.init_params(cfg, seed, device)
+    if cell.shape.kind == "train":
+        return (params, adamw_init(params), batch_of(cell.abstract_args[2]),
+                torch.zeros((), dtype=torch.int32, device=device))
+    return params, batch_of(cell.abstract_args[1])
+
+
+def cell_launches(cfg, kind):
+    """(flash, SSD) launches of one train step (forward and the layer's
+    checkpoint recompute) or one prefill: one a causal self-attention or
+    Mamba-2 layer and pass."""
+    passes = 2 if kind == "train" else 1
+    mixers = [cfg.mixer_at(i) for i in range(cfg.num_layers)]
+    return passes * mixers.count(ATTN), passes * mixers.count(SSM)
+
+
+def float32_config(arch):
+    return get_config(arch).with_(dtype="float32")
+
+
+def tracker_vs_allocator(arch, shape_name, cfg, shape, device="cuda"):
+    """One reduced cell traced on meta, then run for real on ``device``
+    under the same tracker: the meta trace's peak against the allocator's
+    (cuda) or the real run's tracker (cpu, the rehearsal)."""
+    cell = reduced_cell(arch, shape_name, cfg, **shape)
+    ops.reset_launch_counts()
+    meta = cell.trace()
+    check(sum(ops.launch_counts().values()) == 0, f"{arch}: a meta trace launched")
+    gc.collect()
+    on_card = torch.device(device).type == "cuda"
+    resident = torch.cuda.memory_allocated() if on_card else 0
+    args = real_args(cell, 0, device)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    real = dataclasses.replace(cell, abstract_args=args).trace(torch.device(device).type)
+    if on_card:
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - resident if on_card else real.peak_bytes
+    del args
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    flash, ssd = cell_launches(cfg, cell.shape.kind)
+    ratio = meta.peak_bytes / peak
+    say("dryrun", check="tracker_vs_allocator", arch=arch, shape=shape_name,
+        batch=cell.shape.global_batch, seq_len=cell.shape.seq_len, dtype=cfg.dtype,
+        layers=cfg.num_layers, meta_peak_gb=meta.peak_bytes / 1e9,
+        real_tracker_peak_gb=real.peak_bytes / 1e9, allocator_peak_gb=peak / 1e9,
+        resident_gb=resident / 1e9, meta_over_allocator=ratio,
+        flash=counts["flash_attention"], ssd=counts["ssd"], step_s=f"{step_s:.2f}")
+    check(abs(meta.peak_bytes - peak) <= DRYRUN_PEAK_TOL * peak,
+          f"{arch} {shape_name}: the meta trace's peak {meta.peak_bytes} is not "
+          f"within {DRYRUN_PEAK_TOL} of the allocator's {peak}")
+    if on_card:
+        check((counts["flash_attention"], counts["ssd"]) == (flash, ssd),
+              f"{arch} {shape_name}: launches {counts}, not flash {flash}, ssd {ssd}")
+    return ratio
+
+
+def dryrun_phase(card, *, device="cuda", workers=DRYRUN_WORKERS, targets=None,
+                 real=DRYRUN_REAL, real_shape=DRYRUN_REAL_SHAPE, cfg_of=float32_config):
+    """Phase 16, ``[dryrun]`` lines: (a) every applicable cell of
+    ``all_cells()`` traced on meta at its full published size on the card's
+    mesh: argument, temp and peak GB, ``fits_hbm``, the traced FLOPs against
+    ``utils.flops.cell_flops``, the H100 roofline's bottleneck and
+    ``mfu_bound``; (b) the per-device argument GB of every cell on the
+    reference's pod meshes; (c) the tracker's peak against the allocator's
+    on the reduced cells of ``real`` (each arch's ``cfg_of(arch)`` at
+    ``real_shape``), run for real on the card."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        say("dryrun", resident_at_entry_gb=torch.cuda.memory_allocated() / 1e9)
+    targets = targets or [(a, s) for a, s, ok, _ in dry_cells.all_cells() if ok]
+    # longest first: the train cells of the Mamba-2 layouts, then the others
+    order = sorted(targets, key=lambda c: (not c[1].startswith("train"),
+                                           get_config(c[0]).ssm is None))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [(c, pool.submit(dryrun.run_cell, *c)) for c in order]
+        for mesh in DRYRUN_POD_MESHES:                                  # (b)
+            for arch, shape in targets:
+                rec = dryrun.run_cell(arch, shape, mesh_name=mesh)
+                say("dryrun", arch=arch, shape=shape, mesh=mesh, chips=rec["chips"],
+                    rules=rec["rules"],
+                    argument_gb=rec["memory"]["argument_bytes"] / 1e9,
+                    fits_hbm_arguments=rec["fits_hbm_arguments"])
+        ratios = [tracker_vs_allocator(a, s, cfg_of(a), real_shape, device)
+                  for a, s in real]                                         # (c)
+        results = [(c, f.result()) for c, f in futures]                   # (a)
+    for (arch, shape), rec in results:
+        check(rec["status"] == "ok", f"{arch} {shape}: {rec}")
+        mem, rl = rec["memory"], rec["roofline"]
+        analytic = cell_flops(get_config(arch), dry_cells.SHAPES[shape])
+        say("dryrun", arch=arch, shape=shape, mesh=rec["mesh"], rules=rec["rules"],
+            argument_gb=mem["argument_bytes"] / 1e9, temp_gb=mem["temp_bytes"] / 1e9,
+            peak_gb=mem["peak_bytes"] / 1e9, fits_hbm=rec["fits_hbm"],
+            traced_flops=rec["traced_cost"]["flops"], cell_flops=analytic,
+            traced_over_cell=rec["traced_cost"]["flops"] / analytic,
+            kernel_flops=json.dumps(rec["traced_cost"]["kernel_flops"]).replace(" ", ""),
+            bottleneck=rl["bottleneck"], mfu_bound=rl["mfu_bound"], trace_s=rec["trace_s"])
+        check(rec["traced_cost"]["flops"] > 0 and mem["temp_bytes"] > 0,
+              f"{arch} {shape}: an empty trace")
+    fits = sorted(f"{a}|{s}" for (a, s), rec in results if rec["fits_hbm"])
+    say("dryrun", cells=len(results), fit_one_card=json.dumps(fits).replace(" ", ""),
+        tracker_vs_allocator=json.dumps([round(r, 4) for r in ratios]),
+        seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2197,6 +2377,7 @@ def main():
     counts[DEEPSEEK], counts[serve_path(DEEPSEEK)] = mla_phase(card)
     counts[JAMBA], counts[serve_path(JAMBA)] = hybrid_phase(card)
     counts[SEAMLESS], counts[serve_path(SEAMLESS)] = encdec_phase(card)
+    dryrun_phase(card)
     for rec in records:     # launches on the path its shapes are from, and the operator's
         rec["launches"] = launches_of(rec, counts.get(rec["path"], {}))
         rec["operator_launches"] = launches_of(rec, op_counts)

@@ -6,7 +6,10 @@ handles with an ``.id``, all on the trainer's one device, the counterpart of
 ``jax.devices()``): the fixed global batch is split into R shards, each
 shard's gradient is accumulated in slot order (a fixed summation order), and
 the loss is sum(loss_sum) / sum(weight) over the global batch, as the
-reference's SPMD step computes it.
+reference's SPMD step computes it.  As in the reference, R is the slot count
+over ``TrainJobConfig.model_axis`` (1 by default), and ``job.rules`` names
+the sharding rule set of the job's (R, model_axis) mesh shape
+(``ElasticTrainer.rules``), which the port reports and does not apply.
 
 A model with MoE layers adds the load-balance loss of the GLOBAL batch, as
 the reference's step (one ``loss_fn`` over the whole batch) does: it is
@@ -45,9 +48,11 @@ from repro_torch.checkpoint.reshard import (restore_from_host,
 from repro_torch.configs.base import FF_MOE, ModelConfig
 from repro_torch.data import make_stream
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import model as M
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
+from repro_torch.sharding import AxisRules, rules_for
 
 
 @dataclass(frozen=True)
@@ -83,6 +88,8 @@ class TrainJobConfig:
     global_batch: int = 8
     seq_len: int = 32
     total_steps: int = 50
+    model_axis: int = 1
+    rules: str = "tp"
     peak_lr: float = 3e-3
     warmup_steps: int = 10
     seed: int = 0
@@ -119,18 +126,30 @@ class ElasticTrainer:
     # -- slots ----------------------------------------------------------------
     @property
     def replicas(self) -> int:
-        return len(self.slots)
+        return len(self.slots) // self.job.model_axis
+
+    @property
+    def rules(self) -> AxisRules:
+        """The job's rule set (``job.rules``) on the (data, model) mesh
+        shape of its slots, (R, ``model_axis``), as the reference's trainer
+        builds its shardings; the port places nothing on it, but its specs
+        give the per-device state bytes of the job at that shape."""
+        return rules_for(self.job.rules,
+                         MeshShape(("data", "model"), (self.replicas, self.job.model_axis)))
 
     def validate_devices(self, slots: Sequence[Slot]) -> int:
         """Check a target slot set BEFORE any rescale stage runs; returns the
-        replica count."""
+        replica count, the slots over ``model_axis``."""
         slots = list(slots)
+        m = self.job.model_axis
         if not slots:
-            raise ValueError("rescale target has no slots")
+            raise ValueError("rescale target has no slots (devices)")
         ids = [s.id for s in slots]
         if len(set(ids)) != len(ids):
             raise ValueError(f"duplicate slot ids {ids}")
-        r = len(slots)
+        if len(slots) % m != 0:
+            raise ValueError(f"{len(slots)} slots not divisible by model_axis {m}")
+        r = len(slots) // m
         if self.job.global_batch % r != 0:
             raise ValueError(f"global_batch {self.job.global_batch} not "
                              f"divisible by {r} replicas")
@@ -214,13 +233,13 @@ class ElasticTrainer:
         goes through a host snapshot (host lane).  The host lane's snapshot
         always goes through the fused pack kernel."""
         slots = list(slots)
-        self.validate_devices(slots)
+        r = self.validate_devices(slots)
         if via_host is None:
             via_host = surviving_devices(self.slots, slots) == 0
         t = RescaleTimings(path="host" if via_host else "p2p")
 
         t0 = time.perf_counter()
-        bounds = self._shard_bounds(len(slots))
+        bounds = self._shard_bounds(r)
         t.load_balance = time.perf_counter() - t0
 
         host = None

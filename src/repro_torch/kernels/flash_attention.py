@@ -2,9 +2,12 @@
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention_fwd`` (the TPU
 kernel).  A CUDA tensor launches the hand-written kernel or raises; a CPU
-tensor takes the plain version in ``kernels/ref.py``.  ``launches`` counts
-kernel launches and nothing else, by the dtype of the instantiation launched
-(``{"float32": n, "bfloat16": n}``).
+tensor takes the plain version in ``kernels/ref.py``; a meta tensor (the
+dry-run's trace) gets empty outputs of the kernel's shapes and dtypes,
+allocated as the CUDA branch allocates them, and its operations noted to
+``utils.memtrace``, with no launch.  ``launches`` counts kernel launches and
+nothing else, by the dtype of the instantiation launched (``{"float32": n,
+"bfloat16": n}``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.utils import memtrace
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -70,11 +74,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return (ref.flash_attention_ref(q, k, v, causal=causal, scale=scale),
                 ref.attention_lse_ref(q, k, causal=causal, scale=scale))
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash attention runs on cuda, cpu or meta, not {q.device}")
     q, k, v = (_rows_aligned(t) for t in (q, k, v))
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        pairs = S * (S + 1) // 2 if causal else S * S
+        memtrace.note_kernel_flops("flash_attention", 4 * hd * B * H * pairs)
+        return out, lse
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
                                         for i in range(3)))
     with torch.cuda.device(q.device):

@@ -3,7 +3,9 @@ the fused device->host snapshot built on it.
 
 Counterpart of ``repro.kernels.pack`` (``pack_leaves_pallas`` and
 ``packed_snapshot_to_host``).  A CUDA tensor launches the hand-written kernel
-or raises; CPU tensors take ``ref.pack_leaves_ref``.  ``pack_leaves.launches``
+or raises; CPU tensors take ``ref.pack_leaves_ref``; meta tensors (the
+dry-run's trace) get an empty buffer of the kernel's shape, with the
+CUDA branch's leaf table beside it, and no launch.  ``pack_leaves.launches``
 counts kernel launches and nothing else, by the leaves' dtype (bfloat16
 takes the 2-byte instantiation).
 """
@@ -51,8 +53,8 @@ def pack_leaves(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
         raise ValueError("pack_leaves takes no zero-size leaf")
     if dev.type == "cpu":
         return ref.pack_leaves_ref(leaves)
-    if dev.type != "cuda":
-        raise ValueError(f"pack_leaves runs on cuda or cpu, not {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"pack_leaves runs on cuda, cpu or meta, not {dev}")
     leaves = [t if t.is_contiguous() else t.contiguous() for t in leaves]
     tiles = [padded_numel(t.numel()) // BLOCK for t in leaves]
     starts = np.cumsum([0] + tiles[:-1]).tolist()
@@ -61,6 +63,8 @@ def pack_leaves(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
                          + [t.numel() for t in leaves], dtype=torch.int64)
     table = table.to(dev)
     out = torch.empty((total * BLOCK_ROWS, LANE), dtype=dt, device=dev)
+    if dev.type == "meta":
+        return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _fn()(table.data_ptr(), len(leaves), total, out.data_ptr(),

@@ -12,11 +12,12 @@ registers, so the sum of squares and the scaled write are one pass over x
 as CUDA would).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes
-``ref.rmsnorm_ref``.  ``triton`` is imported inside the launching function,
-because it exists only where there is a card.  ``rmsnorm.launches`` counts
-kernel launches and nothing else, by x's dtype.  (No ``from __future__
-import annotations`` here: Triton reads the ``tl.constexpr`` annotations as
-objects.)
+``ref.rmsnorm_ref``; a meta tensor (the dry-run's trace) gets an empty
+output of the kernel's shape, with no launch and no Triton.  ``triton`` is
+imported inside the launching function, because it exists only where there
+is a card.  ``rmsnorm.launches`` counts kernel launches and nothing else, by
+x's dtype.  (No ``from __future__ import annotations`` here: Triton reads
+the ``tl.constexpr`` annotations as objects.)
 """
 import functools
 from collections import Counter
@@ -63,18 +64,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
                          f"x {tuple(x.shape)} on {x.device}")
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rmsnorm runs on cuda, cpu or meta, not {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"rmsnorm takes a floating x, got {x.dtype}")
-    triton, kernel = _kernel()
+    block_d = 1 << max(D - 1, 0).bit_length()          # next power of two
+    if block_d > MAX_BLOCK_ELEMS:
+        raise ValueError(f"rows of {D} elements exceed one program's block")
     x2 = x.reshape(-1, D)
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     out = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
-    block_d = triton.next_power_of_2(D)
-    if block_d > MAX_BLOCK_ELEMS:
-        raise ValueError(f"rows of {D} elements exceed one program's block")
+    if x.device.type == "meta":
+        return out.reshape(x.shape)
+    triton, kernel = _kernel()
     block_rows = max(1, min(16, MAX_BLOCK_ELEMS // block_d))
     n = x2.shape[0]
     grid = (triton.cdiv(n, block_rows),)

@@ -5,8 +5,11 @@ kernel).  A CUDA tensor launches the hand-written kernel or raises; a CPU
 tensor takes the plain version ``ref.ssd_chunked_ref``.  The kernel runs as
 three launches on the current stream (chunk states, state passing, chunk
 scan; ``ref.ssd_split_ref`` is their plain version), with scratch allocated
-here.  ``ssd_scan_fwd.launches`` counts wrapper calls that launched the
-kernel, and nothing else, by x's dtype.
+here.  A meta tensor (the dry-run's trace) gets an empty y, and the
+wrapper allocates on meta the scratch its CUDA branch allocates and notes
+the scan's operations to ``utils.memtrace``, with no launch.
+``ssd_scan_fwd.launches`` counts wrapper calls that launched the kernel, and
+nothing else, by x's dtype.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from collections import Counter
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.utils import memtrace
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128    # limits of the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,8 +75,8 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     Q = _check(x, dt, a_log, b, c, chunk)
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(x, dt, a_log, b, c, chunk=Q)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd runs on cuda, cpu or meta, not {x.device}")
     B, L, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
     if Q > MAX_CHUNK or P > MAX_HEAD_DIM or N > MAX_STATE:
@@ -86,6 +90,13 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     nc = L // Q         # scratch of the three phases: cumsums, chunk states
     cum = torch.empty((B, nc, H, Q), dtype=torch.float32, device=x.device)
     states = torch.empty((B, nc, H, N, P), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        # causal pairs only; the C.B^T scores once a group, then a head's
+        # masked scores times x and its state terms
+        pairs = Q * (Q + 1) // 2
+        memtrace.note_kernel_flops(
+            "ssd", B * nc * (G * 2 * pairs * N + H * (2 * pairs * P + 4 * Q * N * P)))
+        return y
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (x, b, c)
                                         for i in range(3)))
     with torch.cuda.device(x.device):

@@ -21,15 +21,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.checkpoint.reshard import flatten_tree, nest_flat
-from repro_torch.configs.base import (ATTN, MLA, SSM, ModelConfig,
+from repro_torch.configs.base import (ATTN, MLA, SSM, ModelConfig, ShapeConfig,
                                       count_active_params, count_params)
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import init_kv_cache, init_mla_cache
 from repro_torch.models.layers import chunked_softmax_xent, rmsnorm
 from repro_torch.models.moe import balance_loss
-from repro_torch.models.params import (from_numpy_flat, init_params,
-                                       param_count, param_shapes, param_specs,
-                                       to_numpy_flat)
+from repro_torch.models.params import (abstract_params, from_numpy_flat,
+                                       init_params, logical_axes, param_count,
+                                       param_shapes, param_specs, to_numpy_flat)
 from repro_torch.models.ssm import init_ssm_cache
 
 LOSS_CHUNK = 512
@@ -125,7 +125,9 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len: int = 0,
     "krope"}}`` (MLA) or ``{"ssm": {"conv", "h"}}``, and in an
     encoder-decoder model also ``{"cross": {"ck", "cv"}}``, the encoder's
     projected keys and values, (batch, ``enc_len``, kv heads, head dim);
-    ``h`` is float32, the rest ``dtype`` (the model's by default)."""
+    ``h`` is float32, the rest ``dtype`` (the model's by default).
+    ``device="meta"`` gives the dry-run's cache (the reference's
+    ``abstract=True``), which allocates nothing."""
     prefix, n = cfg.scan_layers()
     period = cfg.layer_period()
     dtype = dtype or getattr(torch, cfg.dtype)
@@ -142,6 +144,41 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, *, enc_len: int = 0,
                 {k: t.expand(n // period, *t.shape).contiguous()
                  for k, t in flatten_tree(layer).items()})
     return cache
+
+
+def _layer_cache_axes(cfg: ModelConfig, i: int) -> dict:
+    """Logical axes mirroring ``_layer_cache`` (for dry-run input shardings)."""
+    mixer = cfg.mixer_at(i)
+    c = {}
+    if mixer == ATTN:
+        kv = ("cache_batch", "cache_seq", "kv_heads", None)
+        c["kv"] = {"k": kv, "v": kv}
+    elif mixer == MLA:
+        c["kv"] = {"ckv": ("cache_batch", "cache_seq", None),
+                   "krope": ("cache_batch", "cache_seq", None)}
+    elif mixer == SSM:
+        c["ssm"] = {"conv": ("cache_batch", None, "ssm_inner"),
+                    "h": ("cache_batch", "ssm_heads", None, None)}
+    if cfg.enc_layers:
+        kv = ("cache_batch", None, "kv_heads", None)
+        c["cross"] = {"ck": kv, "cv": kv}
+    return c
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical-axis tree matching ``make_cache``'s structure."""
+    prefix, n = cfg.scan_layers()
+    period = cfg.layer_period()
+    axes = {}
+    if prefix:
+        axes["prefix"] = {f"layer{i}": _layer_cache_axes(cfg, i)
+                          for i in range(prefix)}
+    if n:
+        axes["blocks"] = {
+            f"sub{j}": nest_flat({k: ("layers",) + a for k, a in
+                                  flatten_tree(_layer_cache_axes(cfg, prefix + j)).items()})
+            for j in range(period)}
+    return axes
 
 
 @torch.inference_mode()
@@ -204,7 +241,36 @@ def pad_cache(cfg: ModelConfig, cache, prompt_len: int, max_len: int):
     return nest_flat(flat)
 
 
+# ---------------------------------------------------------------------------
+# Dry-run input specs
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta-tensor stand-ins for every model input of this cell.  Tokens and
+    labels are ``torch.long``, the dtype the port's entry points take, where
+    the reference's are int32; the encoder's frames are the model's dtype."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+    meta = lambda shp, dtype: torch.empty(shp, dtype=dtype, device="meta")
+    if shape.kind in ("train", "prefill"):
+        spec = {"tokens": meta((B, S), torch.long)}
+        if shape.kind == "train":
+            spec["labels"] = meta((B, S), torch.long)
+        if cfg.enc_layers:
+            spec["enc_embeds"] = meta((B, S, cfg.d_model), dt)
+        return spec
+    if shape.kind != "decode":
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
+    return {
+        "tokens": meta((B, 1), torch.long),
+        "pos": meta((), torch.int32),
+        "cache": make_cache(cfg, B, S, enc_len=S if cfg.enc_layers else 0,
+                            device="meta"),
+    }
+
+
 __all__ = ["forward_hidden", "loss_terms", "aux_loss", "loss_fn", "init_params",
            "param_specs", "param_shapes", "param_count", "count_params",
            "count_active_params", "from_numpy_flat", "to_numpy_flat",
-           "make_cache", "prefill", "decode_step", "pad_cache", "LOSS_CHUNK"]
+           "make_cache", "prefill", "decode_step", "pad_cache", "LOSS_CHUNK",
+           "abstract_params", "logical_axes", "cache_axes", "input_specs"]

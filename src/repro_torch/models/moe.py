@@ -6,7 +6,7 @@ Two implementations share one router:
   weights.  Exact (no token dropping); the oracle of the tests.
 - ``gather`` (default): capacity-bounded dispatch per sequence, as the
   reference's: a stable sort of the (token, choice) assignments by expert,
-  positions within each expert from the bincount starts, capacity
+  positions within each expert from the count starts, capacity
   ``min(S, max(4, ceil(S * k * capacity_factor / E)))``, and assignments past
   it dropped.  The kept tokens are gathered into an (E, B*C, D) buffer, each
   expert's FFN is one batched product, and each token sums its k weighted
@@ -53,13 +53,21 @@ def router_probs(p: dict, x) -> torch.Tensor:
     return torch.softmax(logits, dim=-1)
 
 
+def _counts(ids, n: int) -> torch.Tensor:
+    """How often each of ``0 .. n-1`` occurs in the integer tensor ``ids``
+    (int64, shape (n,)): ``torch.bincount(ids, minlength=n)`` for ids below
+    ``n``, through an op that has a meta kernel, so a dry-run traces it."""
+    ids = ids.reshape(-1)
+    return torch.zeros(n, dtype=torch.long, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def balance_stats(probs, expert_ids, num_experts: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(router probabilities summed over tokens (E,), assignments per expert
     (E,)), both float32: the sums behind ``load_balance_loss``."""
     psum = probs.reshape(-1, num_experts).sum(0)
-    counts = torch.bincount(expert_ids.reshape(-1), minlength=num_experts)
-    return psum, counts.float()
+    return psum, _counts(expert_ids, num_experts).float()
 
 
 def balance_loss(psum, counts, n_tokens: int, num_experts: int) -> torch.Tensor:
@@ -158,8 +166,7 @@ def _moe_gather(cfg: ModelConfig, p: dict, x, weights, ids):
         order = torch.argsort(exp_ids, dim=-1, stable=True)
         exp_sorted = exp_ids.gather(1, order)
         row = torch.arange(B, device=dev)[:, None]
-        counts = torch.bincount((exp_ids + row * E).reshape(-1),
-                                minlength=B * E).view(B, E)
+        counts = _counts(exp_ids + row * E, B * E).view(B, E)
         starts = torch.cumsum(counts, dim=-1) - counts             # (B, E)
         pos_sorted = torch.arange(N, device=dev)[None, :] - starts.gather(1, exp_sorted)
         # un-sort the positions back to assignment order

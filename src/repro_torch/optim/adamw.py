@@ -36,6 +36,21 @@ def adamw_init(params) -> dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def abstract_opt_state(abstract_params) -> dict:
+    """``adamw_init``'s tree as meta tensors: float32 ``m`` and ``v`` of each
+    parameter's shape and an int32 ``count`` (the dry-run's state)."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {"m": tree_map(f32, abstract_params), "v": tree_map(f32, abstract_params),
+            "count": torch.empty((), dtype=torch.int32, device="meta")}
+
+
+def opt_logical_axes(param_axes) -> dict:
+    """Moments inherit each parameter's logical axes; ``count`` has none."""
+    ident = lambda a: a
+    return {"m": tree_map(ident, param_axes), "v": tree_map(ident, param_axes),
+            "count": ()}
+
+
 def global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
 

@@ -667,3 +667,38 @@ def test_seamless_train_step_on_card_matches_the_cpu():
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "flash_attention": 2 * 2 * cfg.num_layers, "pack": 0, "rmsnorm": 0, "ssd": 0}
+
+
+# -- the wrappers' meta branches (the dry-run) against the kernels ----------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_wrappers_match_the_kernels_outputs_on_card(dtype):
+    """Each wrapper's meta output has the shapes and dtypes of its CUDA
+    output, and a meta call adds no launch."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, 256, 8, 64), device=dev, generator=g).to(dtype)
+    k = torch.randn((2, 256, 2, 64), device=dev, generator=g).to(dtype)
+    x = torch.randn((2, 256, 8, 32), device=dev, generator=g).to(dtype)
+    dt = torch.rand((2, 256, 8), device=dev, generator=g)
+    a_log = torch.randn(8, device=dev, generator=g)
+    b = torch.randn((2, 256, 2, 64), device=dev, generator=g).to(dtype)
+    leaves = [torch.randn(s, device=dev, generator=g).to(dtype)
+              for s in ((3, 4), (1,), (9, 130))]
+    w = torch.randn(64, device=dev, generator=g).to(dtype)
+    calls = {
+        "flash_attention": lambda m: flash_attention_fwd(m(q), m(k), m(k)),
+        "ssd": lambda m: (ssd_scan_fwd(m(x), m(dt), m(a_log), m(b), m(b), chunk=128),),
+        "pack": lambda m: (pack_leaves([m(t) for t in leaves]),),
+        "rmsnorm": lambda m: (ops.rmsnorm(m(q).reshape(-1, 64), m(w)),),
+    }
+    for name, call in calls.items():
+        ops.reset_launch_counts()
+        real = call(lambda t: t)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[name] == 1, name
+        meta = call(lambda t: t.to("meta"))
+        assert ops.launch_counts()[name] == 1, name
+        for r, m in zip(real, meta):
+            assert m.is_meta and m.shape == r.shape and m.dtype == r.dtype, name

@@ -100,13 +100,20 @@ ENCDEC_MODULES = {"repro_torch.configs.seamless_m4t_large_v2",
                   "repro_torch.data", "repro_torch.data.pipeline"}
 
 
+# sharding rules, cells, the dry-run and the H100 roofline
+DRYRUN_MODULES = {"repro_torch.sharding", "repro_torch.sharding.specs",
+                  "repro_torch.launch.mesh", "repro_torch.launch.cells",
+                  "repro_torch.launch.dryrun", "repro_torch.utils.roofline",
+                  "repro_torch.utils.memtrace"}
+
+
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run([sys.executable, "-c", SCRIPT, REPO], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n = int(proc.stdout.split("IMPORTED")[1])
-    assert n >= 78, proc.stdout
+    assert n >= 85, proc.stdout
     names = set(proc.stdout.split("MODULES")[1].split("IMPORTED")[0].split())
     assert OPERATOR_MODULES <= names, sorted(OPERATOR_MODULES - names)
     assert SIMULATOR_MODULES <= names, sorted(SIMULATOR_MODULES - names)
@@ -117,3 +124,4 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert MLA_MODULES <= names, sorted(MLA_MODULES - names)
     assert HYBRID_MODULES <= names, sorted(HYBRID_MODULES - names)
     assert ENCDEC_MODULES <= names, sorted(ENCDEC_MODULES - names)
+    assert DRYRUN_MODULES <= names, sorted(DRYRUN_MODULES - names)

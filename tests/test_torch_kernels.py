@@ -98,14 +98,18 @@ def test_launch_counts_by_dtype_count_no_cpu_call_and_reset():
 
 
 def test_wrappers_refuse_devices_they_do_not_serve():
-    q = torch.empty((1, 32, 4, 16), device="meta")
-    k = torch.empty((1, 32, 2, 16), device="meta")
-    with pytest.raises(ValueError):
-        flash_attention_fwd(q, k, k)
-    with pytest.raises(ValueError):
-        ops.rmsnorm(q, torch.empty(16, device="meta"))
-    with pytest.raises(ValueError):
-        pack_leaves([q])
+    # cpu, cuda and meta (the dry-run's trace) are served; fake tensors of a
+    # FakeTensorMode stand in for a device that is not
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        q = torch.empty((1, 32, 4, 16), device="xpu")
+        k = torch.empty((1, 32, 2, 16), device="xpu")
+        with pytest.raises(ValueError):
+            flash_attention_fwd(q, k, k)
+        with pytest.raises(ValueError):
+            ops.rmsnorm(q, torch.empty(16, device="xpu"))
+        with pytest.raises(ValueError):
+            pack_leaves([q])
     with pytest.raises(ValueError):           # head_dim the kernel lacks
         flash_attention_fwd(*(torch.zeros(1, 8, 2, 24) for _ in range(3)))
 

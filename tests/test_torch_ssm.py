@@ -154,9 +154,12 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take():
                      c[:, :, :1].expand(1, 32, 3, 8).contiguous(), chunk=8)
     with pytest.raises(TypeError):            # b in another type than x
         ssd_scan_fwd(x, dt, a_log, b.double(), c.double(), chunk=8)
-    meta = [t.to("meta") for t in (x, dt, a_log, b, c)]
-    with pytest.raises(ValueError):           # neither cuda nor cpu
-        ssd_scan_fwd(*meta, chunk=8)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():                    # neither cuda, cpu nor meta
+        other = [torch.empty(t.shape, dtype=t.dtype, device="xpu")
+                 for t in (x, dt, a_log, b, c)]
+        with pytest.raises(ValueError):
+            ssd_scan_fwd(*other, chunk=8)
 
 
 # -- the kernel's three-phase split, in plain PyTorch --------------------------
