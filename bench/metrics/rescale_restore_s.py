@@ -1,0 +1,9 @@
+"""The port's own ``RescaleTimings.restore`` (host -> device), totalled over
+the window's host-lane rescales, per rescale."""
+
+
+def read(run):
+    host = [r for r in run.rescales if r["path"] == "host"]
+    if not host:
+        return None
+    return sum(r["restore"] for r in host) / len(host)
