@@ -18,6 +18,8 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.device_spans import current_recorder, span
+
 
 def _escape(part: str) -> str:
     return part.replace("%", "%25").replace("/", "%2F")
@@ -137,7 +139,9 @@ def restore_from_host(host_flat: Dict[str, np.ndarray], template,
                       device: torch.device):
     """Host snapshot -> new tensors on ``device``, shaped like ``template``;
     each leaf keeps the template leaf's dtype and ``requires_grad``.  Always
-    a copy, so later in-place updates never write into the snapshot."""
+    a copy, so later in-place updates never write into the snapshot.  The
+    copies are one ``rescale.copy_h2d`` span of ``obs.device_spans``, and
+    their bytes add to ``host_lane.bytes_h2d``."""
     def put(leaf, arr):
         arr = np.asarray(arr)
         if tuple(arr.shape) != tuple(leaf.shape):
@@ -145,7 +149,12 @@ def restore_from_host(host_flat: Dict[str, np.ndarray], template,
         t = host_tensor(arr).to(device=device, dtype=leaf.dtype, copy=True)
         return t.requires_grad_(leaf.requires_grad)
     keys = tree_path_keys(template)
-    flat = {k: put(leaf, host_flat[k]) for k, leaf in keys}
+    with span("rescale.copy_h2d"):
+        flat = {k: put(leaf, host_flat[k]) for k, leaf in keys}
+    rec = current_recorder()
+    if rec.enabled:
+        rec.count("host_lane.bytes_h2d",
+                  sum(t.numel() * t.element_size() for t in flat.values()))
     return unflatten_tree(template, flat)
 
 

@@ -29,6 +29,13 @@ A rescale reports the paper's four stages (Fig. 5):
     restore       host -> device on the host lane; nothing on the p2p lane,
                   where the state stays resident on the card
 
+Each stage is a ``rescale.<stage>`` span of ``obs.device_spans``, whose own
+clock reads fill ``RescaleTimings`` whether or not a recorder is installed;
+``step()`` opens ``trainer.batch``, ``trainer.forward`` and
+``trainer.backward`` (each shard's, or one backward on the MoE path),
+``trainer.optimizer`` and ``trainer.metrics`` inside ``trainer.step``.
+Both record under a running ``torch.profiler`` (``follow_profiler``).
+
 Training state is ``(params, opt_state, step)``; the data stream is a pure
 function of ``(seed, step)``, so a rescaled run reproduces the static run.
 """
@@ -50,6 +57,7 @@ from repro_torch.data import make_stream
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import model as M
+from repro_torch.obs.device_spans import follow_profiler, span, timed
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                warmup_cosine)
 from repro_torch.sharding import AxisRules, rules_for
@@ -176,48 +184,60 @@ class ElasticTrainer:
 
     # -- train step -------------------------------------------------------------
     def step(self) -> dict:
-        batch_np = self.stream.global_batch_at(self.step_idx)
-        # tokens and labels as long; an encoder-decoder model's float32
-        # enc_embeds as they are (the model casts them to its dtype)
-        batch = {k: torch.from_numpy(v).to(self.device, None if v.dtype.kind == "f"
-                                          else torch.long)
-                 for k, v in batch_np.items()}
-        n_tokens = float((batch_np["labels"] >= 0).sum())
-        denom = max(n_tokens, 1.0)
-        shards = [{k: v[lo:hi] for k, v in batch.items()} for lo, hi in self._bounds]
-        if self._has_moe:
-            parts = [M.loss_terms(self.cfg, self.params, shard) for shard in shards]
-            # per layer: (psum, counts) summed over the shards, in slot order
-            moe_stats = [tuple(sum(t) for t in zip(*layer))
-                         for layer in zip(*(stats for _, _, stats in parts))]
-            aux = M.aux_loss(self.cfg, moe_stats, batch["tokens"].numel(), self.device)
-            loss_sum = sum(ls for ls, _, _ in parts)
-            (loss_sum / denom + aux).backward()
-            loss_sum, aux = loss_sum.detach(), aux.detach()
-            del parts, moe_stats
-        else:
-            loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-            for shard in shards:
-                ls, _, _ = M.loss_terms(self.cfg, self.params, shard)
-                (ls / denom).backward()
-                loss_sum += ls.detach()
-            aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        lr = warmup_cosine(self.step_idx, peak_lr=self.job.peak_lr,
-                           warmup_steps=self.job.warmup_steps,
-                           total_steps=self.job.total_steps)
-        # no local names the gradients: a first step's frame can outlive it
-        # in a reference cycle (lazy imports), and would hold them
-        om = adamw_update(self.adamw, tree_map(lambda p: p.grad, self.params),
-                          self.opt_state, self.params, lr)
-        for p in tree_leaves(self.params):
-            p.grad = None
-        xent = loss_sum / denom
-        self.step_idx += 1
-        metrics = {"loss": float(xent + aux), "xent": float(xent), "aux": float(aux),
-                   "tokens": n_tokens,
-                   **{k: float(v) for k, v in om.items()},
-                   "step": self.step_idx, "replicas": self.replicas}
-        self.metrics_log.append(metrics)
+        follow_profiler(self.device)
+        with span("trainer.step", self.step_idx):
+            with span("trainer.batch"):
+                batch_np = self.stream.global_batch_at(self.step_idx)
+                # tokens and labels as long; an encoder-decoder model's float32
+                # enc_embeds as they are (the model casts them to its dtype)
+                batch = {k: torch.from_numpy(v).to(self.device, None if v.dtype.kind == "f"
+                                                  else torch.long)
+                         for k, v in batch_np.items()}
+                n_tokens = float((batch_np["labels"] >= 0).sum())
+                denom = max(n_tokens, 1.0)
+                shards = [{k: v[lo:hi] for k, v in batch.items()} for lo, hi in self._bounds]
+            if self._has_moe:
+                parts = []
+                for i, shard in enumerate(shards):
+                    with span("trainer.forward", attrs={"shard": i}):
+                        parts.append(M.loss_terms(self.cfg, self.params, shard))
+                with span("trainer.backward"):
+                    # per layer: (psum, counts) summed over the shards, in slot order
+                    moe_stats = [tuple(sum(t) for t in zip(*layer))
+                                 for layer in zip(*(stats for _, _, stats in parts))]
+                    aux = M.aux_loss(self.cfg, moe_stats, batch["tokens"].numel(),
+                                     self.device)
+                    loss_sum = sum(ls for ls, _, _ in parts)
+                    (loss_sum / denom + aux).backward()
+                    loss_sum, aux = loss_sum.detach(), aux.detach()
+                    del parts, moe_stats
+            else:
+                loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+                for i, shard in enumerate(shards):
+                    with span("trainer.forward", attrs={"shard": i}):
+                        ls, _, _ = M.loss_terms(self.cfg, self.params, shard)
+                    with span("trainer.backward", attrs={"shard": i}):
+                        (ls / denom).backward()
+                        loss_sum += ls.detach()
+                aux = torch.zeros((), dtype=torch.float32, device=self.device)
+            with span("trainer.optimizer"):
+                lr = warmup_cosine(self.step_idx, peak_lr=self.job.peak_lr,
+                                   warmup_steps=self.job.warmup_steps,
+                                   total_steps=self.job.total_steps)
+                # no local names the gradients: a first step's frame can outlive
+                # it in a reference cycle (lazy imports), and would hold them
+                om = adamw_update(self.adamw, tree_map(lambda p: p.grad, self.params),
+                                  self.opt_state, self.params, lr)
+                for p in tree_leaves(self.params):
+                    p.grad = None
+            with span("trainer.metrics"):
+                xent = loss_sum / denom
+                self.step_idx += 1
+                metrics = {"loss": float(xent + aux), "xent": float(xent),
+                           "aux": float(aux), "tokens": n_tokens,
+                           **{k: float(v) for k, v in om.items()},
+                           "step": self.step_idx, "replicas": self.replicas}
+                self.metrics_log.append(metrics)
         return metrics
 
     @property
@@ -237,30 +257,33 @@ class ElasticTrainer:
         if via_host is None:
             via_host = surviving_devices(self.slots, slots) == 0
         t = RescaleTimings(path="host" if via_host else "p2p")
+        follow_profiler(self.device)
+        with span("trainer.rescale", self.step_idx):
+            with timed("rescale.load_balance") as stage:
+                bounds = self._shard_bounds(r)
+            t.load_balance = stage.seconds
 
-        t0 = time.perf_counter()
-        bounds = self._shard_bounds(r)
-        t.load_balance = time.perf_counter() - t0
+            host = None
+            if via_host:
+                with timed("rescale.checkpoint") as stage:
+                    host = {"params": snapshot_to_host(self.params, fused=True),
+                            "opt": snapshot_to_host(self.opt_state, fused=True)}
+                t.checkpoint = stage.seconds
 
-        host = None
-        if via_host:
-            t0 = time.perf_counter()
-            host = {"params": snapshot_to_host(self.params, fused=True),
-                    "opt": snapshot_to_host(self.opt_state, fused=True)}
-            t.checkpoint = time.perf_counter() - t0
+            with timed("rescale.restart") as stage:
+                self._ensure_step_state(slots, bounds)
+            t.restart = stage.seconds
 
-        t0 = time.perf_counter()
-        self._ensure_step_state(slots, bounds)
-        t.restart = time.perf_counter() - t0
-
-        if via_host:               # the p2p lane leaves the state resident
-            t0 = time.perf_counter()
-            self.params = restore_from_host(host["params"], self.params,
-                                            self.device)
-            self.opt_state = restore_from_host(host["opt"], self.opt_state,
-                                               self.device)
-            self._sync()
-            t.restore = time.perf_counter() - t0
+            if via_host:           # the p2p lane leaves the state resident
+                with timed("rescale.restore") as stage:
+                    self.params = restore_from_host(host["params"], self.params,
+                                                    self.device)
+                    self.opt_state = restore_from_host(host["opt"], self.opt_state,
+                                                       self.device)
+                    self._sync()
+                t.restore = stage.seconds
+                with span("rescale.free"):          # the pinned snapshot
+                    del host
 
         self.rescale_log.append(t)
         return t

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.checkpoint.reshard import host_array
 from repro_torch.kernels import _build, ref
+from repro_torch.obs.device_spans import count, span
 
 LANE = ref.PACK_LANE
 BLOCK_ROWS = ref.PACK_BLOCK_ROWS
@@ -85,7 +86,10 @@ def packed_snapshot_to_host(flat: Dict[str, torch.Tensor]
     group.  The returned arrays are views into that fresh host buffer, which
     no live tensor shares; a bfloat16 group goes through the kernel's 2-byte
     instantiation and comes back as ``V2`` views (``reshard.host_array``).
-    Zero-size leaves are not sent."""
+    Zero-size leaves are not sent.  Each group's pack, pinned allocation and
+    copy are ``rescale.pack``, ``rescale.pin`` and ``rescale.copy_d2h`` spans
+    of ``obs.device_spans``, and its packed bytes add to
+    ``host_lane.bytes_d2h``."""
     groups: Dict[torch.dtype, List[str]] = {}
     out: Dict[str, np.ndarray] = {}
     for k, t in flat.items():
@@ -95,9 +99,13 @@ def packed_snapshot_to_host(flat: Dict[str, torch.Tensor]
             groups.setdefault(t.dtype, []).append(k)
     for dt, ks in groups.items():
         leaves = [flat[k].detach() for k in ks]
-        packed = pack_leaves(leaves)
-        host = torch.empty(packed.numel(), dtype=dt, pin_memory=packed.is_cuda)
-        host.copy_(packed.reshape(-1))
+        with span("rescale.pack"):
+            packed = pack_leaves(leaves)
+        with span("rescale.pin"):
+            host = torch.empty(packed.numel(), dtype=dt, pin_memory=packed.is_cuda)
+        with span("rescale.copy_d2h"):
+            host.copy_(packed.reshape(-1))
+        count("host_lane.bytes_d2h", packed.numel() * packed.element_size())
         host = host_array(host)
         off = 0
         for k, t in zip(ks, leaves):

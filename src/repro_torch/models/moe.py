@@ -10,7 +10,10 @@ Two implementations share one router:
   ``min(S, max(4, ceil(S * k * capacity_factor / E)))``, and assignments past
   it dropped.  The kept tokens are gathered into an (E, B*C, D) buffer, each
   expert's FFN is one batched product, and each token sums its k weighted
-  slots.
+  slots.  Its router-to-slots dispatch, expert products and combine are
+  ``model.moe.*`` spans of ``obs.device_spans`` (the dispatch and combine
+  also in their backwards), and in the forward phase it counts the
+  assignments kept under capacity and its slots (``moe.*``).
 
 Where the reference scatter-adds (the combine, and the gather's transpose
 in the backward), the port gathers each token's k slots and sums them in a
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import FF_SWIGLU, ModelConfig
 from repro_torch.models.layers import apply_ffn, gelu
+from repro_torch.obs.device_spans import current_recorder, phase, span
 
 _IMPL = {"impl": "gather"}  # module switch: "gather" | "dense"
 
@@ -130,9 +134,10 @@ class _Dispatch(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (slot_of_asg,) = ctx.saved_tensors
-        gx = _rows(g, slot_of_asg)                                 # (B*S*k, D)
-        return gx.view(-1, ctx.k, g.shape[1]).sum(1), None, None, None
+        with span("model.moe.dispatch"):
+            (slot_of_asg,) = ctx.saved_tensors
+            gx = _rows(g, slot_of_asg)                             # (B*S*k, D)
+            return gx.view(-1, ctx.k, g.shape[1]).sum(1), None, None, None
 
 
 class _Combine(torch.autograd.Function):
@@ -147,13 +152,16 @@ class _Combine(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (asg_of_slot,) = ctx.saved_tensors
-        return _rows(g, asg_of_slot), None, None
+        with span("model.moe.combine"):
+            (asg_of_slot,) = ctx.saved_tensors
+            return _rows(g, asg_of_slot), None, None
 
 
-def _moe_gather(cfg: ModelConfig, p: dict, x, weights, ids):
+def _gather_dispatch(cfg: ModelConfig, x, ids):
     """Capacity-bounded dispatch, *per sequence* (GShard-style groups), with
-    per-sequence capacity C = ceil(S * k * capacity_factor / E)."""
+    per-sequence capacity C = ceil(S * k * capacity_factor / E): the kept
+    tokens as (E, B*C, D) slots, and the (slot_of_asg, asg_of_slot) tables
+    that ``_gather_combine`` reads."""
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.num_experts, m.experts_per_token
@@ -186,23 +194,48 @@ def _moe_gather(cfg: ModelConfig, p: dict, x, weights, ids):
         asg_of_slot = asg_of_slot[:n_slots]
         tok_of_slot = asg_of_slot // k                             # B*S = empty
 
+    rec = current_recorder()
+    if rec.enabled and phase() == "forward":
+        rec.count("moe.kept", (pos < cap).sum())
+        rec.count("moe.slots", n_slots)
     xg = _Dispatch.apply(x.reshape(B * S, D), tok_of_slot, slot_of_asg, k)
-    yg = _expert_ffn_batched(xg.view(E, B * cap, D), p, m.ff_kind)
-    y_asg = _Combine.apply(yg.reshape(n_slots, D), slot_of_asg, asg_of_slot)
-    return torch.sum(y_asg.view(B, S, k, D) * weights[..., None], dim=2)
+    return xg.view(E, B * cap, D), (slot_of_asg, asg_of_slot)
 
 
-def moe_layer(cfg: ModelConfig, p: dict, x):
-    """(y, (psum, counts)): the layer's output and its ``balance_stats``."""
-    m = cfg.moe
+def _gather_combine(yg, weights, slot_of_asg, asg_of_slot):
+    """Expert outputs (E, B*C, D) -> (B, S, D): each token's k slots, weighted
+    and summed."""
+    D = yg.shape[-1]
+    y_asg = _Combine.apply(yg.reshape(-1, D), slot_of_asg, asg_of_slot)
+    return torch.sum(y_asg.view(*weights.shape, D) * weights[..., None], dim=2)
+
+
+def _route(m, p: dict, x):
+    """(float32 probs (B,S,E), top-k weights normalised to sum 1 in x's
+    dtype, expert ids), each (B,S,k) but the probs."""
     probs = router_probs(p, x)                                     # float32
     weights, ids = torch.topk(probs, m.experts_per_token, dim=-1)  # (B,S,k)
     weights = (weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
                ).to(x.dtype)
+    return probs, weights, ids
+
+
+def moe_layer(cfg: ModelConfig, p: dict, x):
+    """(y, (psum, counts)): the layer's output and its ``balance_stats``.
+    The gather path opens ``model.moe.dispatch`` (router to ``_Dispatch``),
+    ``model.moe.experts`` and ``model.moe.combine`` spans."""
+    m = cfg.moe
     if _IMPL["impl"] == "dense":
+        probs, weights, ids = _route(m, p, x)
         y = _moe_dense(cfg, p, x, weights, ids)
     else:
-        y = _moe_gather(cfg, p, x, weights, ids)
+        with span("model.moe.dispatch"):
+            probs, weights, ids = _route(m, p, x)
+            xg, tables = _gather_dispatch(cfg, x, ids)
+        with span("model.moe.experts"):
+            yg = _expert_ffn_batched(xg, p, m.ff_kind)
+        with span("model.moe.combine"):
+            y = _gather_combine(yg, weights, *tables)
     if m.num_shared_experts:
         y = y + apply_ffn(p["shared"], x, m.ff_kind)
     return y, balance_stats(probs, ids, m.num_experts)

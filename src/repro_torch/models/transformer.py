@@ -50,6 +50,7 @@ from repro_torch.models.attention import attn_forward, mla_forward
 from repro_torch.models.layers import apply_ffn, rmsnorm
 from repro_torch.models.moe import moe_layer
 from repro_torch.models.ssm import ssm_forward
+from repro_torch.obs.device_spans import span
 
 MODES = ("train", "prefill", "decode")
 _MLA_ABSORB = {"decode": True, "prefill": False, "train": False}
@@ -112,6 +113,13 @@ def apply_layer(cfg: ModelConfig, p: dict, x, layer_idx: int, *, positions,
             y = apply_ffn(p["ff"], h, ff)
         x = x + y
     return x, cache, stats
+
+
+def _layer(cfg: ModelConfig, p: dict, x, layer_idx: int, **kw):
+    """``apply_layer`` inside a ``model.layer`` span; under a train-mode
+    checkpoint the span opens in the forward and again in the recompute."""
+    with span("model.layer"):
+        return apply_layer(cfg, p, x, layer_idx, **kw)
 
 
 def _grad_into(stacked: torch.Tensor, i: int):
@@ -179,11 +187,11 @@ def decoder(cfg: ModelConfig, dparams: dict, x, *, positions, mode: str = "train
     moe_stats = []
     for i, lp, c in layers:
         if mode == "train":
-            x, _, stats = checkpoint(apply_layer, cfg, lp, x, i, positions=positions,
+            x, _, stats = checkpoint(_layer, cfg, lp, x, i, positions=positions,
                                      enc_out=enc_out, use_reentrant=False)
         else:
-            x, _, stats = apply_layer(cfg, lp, x, i, positions=positions,
-                                      mode=mode, cache=c, pos=pos, enc_out=enc_out)
+            x, _, stats = _layer(cfg, lp, x, i, positions=positions,
+                                 mode=mode, cache=c, pos=pos, enc_out=enc_out)
         if stats is not None:
             moe_stats.append(stats)
     return x, cache, moe_stats

@@ -106,6 +106,9 @@ DRYRUN_MODULES = {"repro_torch.sharding", "repro_torch.sharding.specs",
                   "repro_torch.launch.dryrun", "repro_torch.utils.roofline",
                   "repro_torch.utils.memtrace"}
 
+# the spans and counters of the training path
+TRACING_MODULES = {"repro_torch.obs.device_spans"}
+
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -125,3 +128,4 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert HYBRID_MODULES <= names, sorted(HYBRID_MODULES - names)
     assert ENCDEC_MODULES <= names, sorted(ENCDEC_MODULES - names)
     assert DRYRUN_MODULES <= names, sorted(DRYRUN_MODULES - names)
+    assert TRACING_MODULES <= names, sorted(TRACING_MODULES - names)
