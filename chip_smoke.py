@@ -25,7 +25,11 @@ without a CUDA device the script exits non-zero before printing a result:
    at phase 14's jamba prefill (group 4; 128 SSM heads of d_state 16),
    flash attention at phase 15's seamless training shard and prefill (group
    1, head dim 64), the pack at phases 13's, 14's and 15's training
-   snapshots;
+   snapshots; the ragged expert products in their three forms (forward,
+   input gradient, weight gradient) at one granite-moe MoE layer's shard
+   at R=4, with counts falling as 1/rank from the capacity, against
+   ``torch.bmm`` over the padded slot layout (their plain version and
+   library call), their bound from the kept rows' operations;
 4. the main paths, each an ElasticTrainer at global batch 8 x 2048 on 4
    logical replicas, stepped, shrunk to 2 on the host lane, stepped,
    expanded to 4 on the p2p lane, stepped; launch counts are zeroed just
@@ -202,7 +206,9 @@ phase 13's host-lane snapshot, on its path ``deepseek-v2-236b``;
 replica's shard of phase 15's training job, on its path
 ``seamless-m4t-large-v2``, ``flash_attention_seamless_serve`` at its
 prefill, on ``seamless-m4t-large-v2-serve``, and ``pack_seamless`` the pack
-of its training snapshot.
+of its training snapshot; ``moe_gemm``, ``moe_gemm_dx`` and ``moe_gemm_dw``
+are the ragged expert products' three forms at phase 11's shapes, on its
+path ``granite-moe-3b-a800m``.
 """
 import contextlib
 import dataclasses
@@ -233,7 +239,7 @@ from repro_torch.checkpoint.reshard import host_tensor  # noqa: E402
 from repro_torch.cloud import (SPOT, AutoscalerConfig, CloudProvider,  # noqa: E402
                                CloudSimulator, NodeAutoscaler, NodePool)
 from repro_torch.configs import ATTN, FF_MOE, SSM, get_config  # noqa: E402
-from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.configs.base import FF_SWIGLU, ShapeConfig  # noqa: E402
 from repro_torch.core import elastic  # noqa: E402
 from repro_torch.core import (ElasticClusterController, ElasticTrainer,  # noqa: E402
                               JobSpec, JobStatus, PolicyConfig,
@@ -246,6 +252,8 @@ from repro_torch.core.perf_model import (H100_HBM_BW,  # noqa: E402
                                          arch_model_from_config)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.moe_gemm import (NN, NT, TN, ragged_gemm,  # noqa: E402
+                                          ragged_gemm_ref, rows_computed)
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
 from repro_torch.launch import cells as dry_cells  # noqa: E402
@@ -254,7 +262,7 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_card_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
-from repro_torch.models.moe import set_moe_impl  # noqa: E402
+from repro_torch.models.moe import moe_impl, set_moe_impl  # noqa: E402
 from repro_torch.models.transformer import set_mla_absorb  # noqa: E402
 from repro_torch.obs import (SimProfiler, Tracer, build_span_graph,  # noqa: E402
                              install, install_profiler)
@@ -275,6 +283,9 @@ PEAK_FLOPS = {torch.float32: H100_PEAK_FLOPS_FP32, torch.bfloat16: H100_PEAK_FLO
 PEAK_BYTES = H100_HBM_BW
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the ragged expert products against torch.bmm: both sum in float32, in
+# different orders, terms of order 1/sqrt(K) (tests/test_torch_cuda_kernels.py)
+MOE_GEMM_TOL = 1e-4
 RMSNORM_TOL = 1e-5
 # atol = rtol, the reference's own SSD tolerances (tests/test_kernels.py:79)
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -454,6 +465,15 @@ SSD_CASES = (("ssd", "mamba2-1.3b", torch.float32, (2, *MAMBA2_SSD)),
              ("ssd_jamba", serve_path(JAMBA), torch.float32, (8, 2048, 128, 64, 1, 16, 128)))
 
 
+# the ragged expert products' phase-3 shapes: one granite-moe MoE layer's
+# shard at R=4 (40 experts, two sequences of capacity 512, d_model 1536,
+# expert width 512) as (E, T, D, F), and each expert's kept rows, falling
+# as 1/rank from the capacity (25.3% of the slots, as the benchmark's
+# Zipf(1) token ids fill 25-27%)
+MOE_GEMM_SHAPE = (40, 1024, 1536, 512)
+MOE_GEMM_ROWS = tuple(min(1024, 3000 // r) for r in range(1, 41))
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
@@ -599,6 +619,45 @@ def check_rmsnorm(gen):
                   "src/repro_torch/kernels/rmsnorm.py",
                   "src/repro/kernels/rmsnorm.py:11", err, ms, plain, lib, b_ms,
                   b_by, 4 * x.numel(), route="triton")
+
+
+def check_moe_gemm(gen):
+    """The ragged expert products' three forms at ``MOE_GEMM_SHAPE`` with
+    ``MOE_GEMM_ROWS``: the forward's X @ W, the input gradient G @ W^T and
+    the weight gradient X^T @ G, each against ``torch.bmm`` over the padded
+    layout (the plain version, and the library call), its bound from the
+    kept rows' operations."""
+    E, T, D, F = MOE_GEMM_SHAPE
+    rows = torch.tensor(MOE_GEMM_ROWS, dtype=torch.int32, device="cuda")
+    past = torch.arange(T, device="cuda")[None, :, None] >= rows[:, None, None]
+    x = torch.randn((E, T, D), device="cuda", generator=gen).masked_fill(past, 0.0)
+    w = torch.randn((E, D, F), device="cuda", generator=gen) / D ** 0.5
+    gy = torch.randn((E, T, F), device="cuda", generator=gen).masked_fill(past, 0.0)
+    kept = sum(MOE_GEMM_ROWS)
+    flops = 2 * kept * D * F                       # each form, over the kept rows
+    recs = []
+    for name, form, a, b in (("moe_gemm", NN, x, w), ("moe_gemm_dx", NT, gy, w),
+                             ("moe_gemm_dw", TN, x, gy)):
+        out = ragged_gemm(form, a, b, rows)
+        err = float((out - ragged_gemm_ref(form, a, b)).abs().max())
+        check(math.isfinite(err) and err <= MOE_GEMM_TOL,
+              f"{name} max_abs_err {err} > {MOE_GEMM_TOL}")
+        ms = time_ms(lambda: ragged_gemm(form, a, b, rows), 10)
+        lib = time_ms(lambda: ragged_gemm_ref(form, a, b), 10)
+        # the kept rows of the slot operands, the whole weight, the output
+        read = nbytes(w) if form != TN else 0
+        read += kept * 4 * (a.shape[2] + (b.shape[2] if form == TN else 0))
+        b_ms, b_by = bound(read + nbytes(out), flops, torch.float32)
+        recs.append(record(name, "moe_gemm", GRANITE, torch.float32,
+                           "src/repro_torch/csrc/moe_gemm.cu", None, err, ms, lib, lib,
+                           b_ms, b_by, flops))
+        say("kernels", kernel="moe_gemm", path=GRANITE, form=name,
+            shape=f"E{E}xT{T}xD{D}xF{F}", rows_kept=kept,
+            rows_computed=int(rows_computed(rows, T, x)), max_abs_err=err, ms=ms,
+            plain_ms=lib, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+            of_bound=recs[-1]["of_bound"], tflops=recs[-1]["tflops"])
+        del out
+    return recs
 
 
 def pack_groups(cfg, gen, dtype=None):
@@ -1512,7 +1571,7 @@ def bf16_phase(cfg, ckpt_root, fp32_loss, job=BF16_JOB, device="cuda"):
     counts = ops.launch_counts_by_dtype()
     # each fused snapshot (the checked one, the shrink's, two saves) packs
     # the bf16 parameters, the float32 moments and the int32 counters
-    expected = {"flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
+    expected = {"flash_attention": {}, "moe_gemm": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
     if on_card:
         expected.update(flash_attention={"bfloat16": 2 * cfg.num_layers * sum(replicas)},
                         pack={"bfloat16": 4, "float32": 4, "int32": 4})
@@ -1721,6 +1780,18 @@ def mixer_layers(cfg):
             for kernel, mixer in (("flash_attention", ATTN), ("ssd", SSM))}
 
 
+def moe_forward_launches(cfg, on_card):
+    """Ragged expert-product launches of one forward pass of ``cfg`` (a
+    prefill or a decode step): the FFN's products (gate, up and down; up and
+    down for GELU) of each MoE layer under the gather dispatch, in float32
+    on the card; the training step's recompute launches them again and its
+    backward twice as many."""
+    layers = sum(cfg.ff_at(i) == FF_MOE for i in range(cfg.num_layers))
+    if not layers or not on_card or cfg.dtype != "float32" or moe_impl() != "gather":
+        return 0
+    return layers * (3 if cfg.moe.ff_kind == FF_SWIGLU else 2)
+
+
 @contextlib.contextmanager
 def kept_restores():
     """While open, each host snapshot that a trainer restores from
@@ -1811,6 +1882,8 @@ def job_phase(cfg, tag, job=MOE_JOB, device="cuda", reduced="none"):
         say(tag, rescale=r.path, **{k: f"{v:.4f}" for k, v in r.as_dict().items()})
     expected = {kernel: 2 * n * sum(MAIN_REPLICAS) if on_card else 0
                 for kernel, n in mixer_layers(cfg).items()}
+    # forward, recompute, and each product's two gradients
+    expected["moe_gemm"] = 4 * moe_forward_launches(t.cfg, on_card) * sum(MAIN_REPLICAS)
     expected_pack = {"float32": 2, "int32": 1} if on_card else {}
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     say(tag, arch=cfg.name, layers=cfg.num_layers, params=M.param_count(cfg),
@@ -1946,8 +2019,11 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
     sync()
     pad_s = time.perf_counter() - t0
     want = {k: {} for k in none}
+    products = moe_forward_launches(cfg, on_card)
     if on_card:
         want.update({k: {"float32": n} for k, n in mixer_layers(cfg).items() if n})
+    if products:
+        want["moe_gemm"] = {"float32": products}
     check(prefill_counts == want, f"{tag} {cfg.name}: prefill launches {prefill_counts} "
           f"!= {want}")
     check(logits.shape == (batch, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
@@ -1981,7 +2057,12 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
         sync()
     decode_s = time.perf_counter() - t0
     decode_counts = ops.launch_counts_by_dtype()
-    check(decode_counts == none, f"{tag} {cfg.name}: decode launched {decode_counts}")
+    want_decode = dict(none)
+    if products:        # each decode step, and an MLA model's two steps before them
+        steps = max_len - 1 - prompt + (2 if cfg.mla is not None else 0)
+        want_decode["moe_gemm"] = {"float32": products * steps}
+    check(decode_counts == want_decode, f"{tag} {cfg.name}: decode launched "
+          f"{decode_counts}, not {want_decode}")
     n = len(out) - 1
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
@@ -2017,7 +2098,8 @@ def serve_model(cfg, card, batch=SERVE["batch"], prompt=SERVE["prompt"],
         decode_of_bound=f"{bound_ms / step_ms:.4f}", card=json.dumps(card))
     say(tag, arch=cfg.name, prefill_launches=json.dumps(prefill_counts).replace(" ", ""),
         decode_launches=json.dumps(decode_counts).replace(" ", ""),
-        expected_prefill=json.dumps(want).replace(" ", ""))
+        expected_prefill=json.dumps(want).replace(" ", ""),
+        expected_decode=json.dumps(want_decode).replace(" ", ""))
 
     if on_card:
         for what, fn in (("prefill", lambda: M.prefill(cfg, params,
@@ -2345,7 +2427,7 @@ def main():
                            (jamba, JAMBA_SERVE_LAYERS, JAMBA_SERVE_PARAMS)):
         got = M.param_count(cfg.with_(num_layers=layers))
         check(got == n, f"{cfg.name} at depth {layers} has {got} parameters, not {n}")
-    records = [*check_flash(gen), check_rmsnorm(gen), *check_ssd(gen)]
+    records = [*check_flash(gen), check_rmsnorm(gen), *check_ssd(gen), *check_moe_gemm(gen)]
     records += [check_pack(cfg, gen, "pack", cfg.name) for cfg in paths]
     records.append(check_pack(paths[0], gen, "pack_bf16", BF16_PATH, torch.bfloat16))
     # the host-lane snapshot's float32 parameter group at granite's size

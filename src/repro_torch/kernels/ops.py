@@ -2,12 +2,14 @@
 
 Dispatch is by the device of the input tensor, with no switch: a CUDA tensor
 launches the kernel (or the wrapper raises), a CPU tensor takes the plain
-version in ``kernels/ref.py``.
+version in ``kernels/ref.py`` (the experts' ragged products keep theirs in
+``kernels/moe_gemm.py``, which also sends bf16 and fp16 to it).
 
 Flash attention's and the SSD scan's backwards recompute through the plain
 versions (``ref.flash_attention_ref``, ``ref.ssd_chunked_ref``), as
 ``repro.kernels.ops._flash_bwd`` and ``_ssd_bwd`` do: the JAX package has no
-backward kernels either.
+backward kernels either.  The experts' ragged product has no TPU kernel;
+its backward is the same kernel in its two other forms.
 """
 from __future__ import annotations
 
@@ -17,12 +19,13 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.moe_gemm import NN, NT, TN, ragged_gemm
 from repro_torch.kernels.pack import pack_leaves
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_kernel
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd
 
-_COUNTED = {"flash_attention": flash_attention_fwd, "pack": pack_leaves,
-            "rmsnorm": _rmsnorm_kernel, "ssd": ssd_scan_fwd}
+_COUNTED = {"flash_attention": flash_attention_fwd, "moe_gemm": ragged_gemm,
+            "pack": pack_leaves, "rmsnorm": _rmsnorm_kernel, "ssd": ssd_scan_fwd}
 
 
 def launch_counts_by_dtype() -> Dict[str, Dict[str, int]]:
@@ -88,10 +91,31 @@ def ssd(x, dt, a_log, b, c, *, chunk: int = 128):
     return _SSD.apply(x, dt, a_log, b, c, chunk)
 
 
+class _RaggedMM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, rows):
+        ctx.save_for_backward(x, w, rows)
+        return ragged_gemm(NN, x, w, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, rows = ctx.saved_tensors
+        dx = ragged_gemm(NT, g, w, rows) if ctx.needs_input_grad[0] else None
+        dw = ragged_gemm(TN, x, g, rows) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def ragged_mm(x, w, rows):
+    """x: (E,T,K) slots, each expert's ``rows[e]`` kept tokens first and
+    zeros past them; w: (E,K,N) -> x @ w (E,T,N), differentiable, computed
+    over the first ``rows[e]`` slots of each expert."""
+    return _RaggedMM.apply(x, w, rows)
+
+
 def rmsnorm(x, w, *, eps: float = 1e-5):
     """The RMSNorm kernel entry (forward only, like ``repro.kernels.ops``)."""
     return _rmsnorm_kernel(x, w, eps)
 
 
-__all__ = ["flash_attention", "rmsnorm", "ssd", "launch_counts",
+__all__ = ["flash_attention", "ragged_mm", "rmsnorm", "ssd", "launch_counts",
            "launch_counts_by_dtype", "reset_launch_counts"]

@@ -9,11 +9,15 @@ Two implementations share one router:
   positions within each expert from the count starts, capacity
   ``min(S, max(4, ceil(S * k * capacity_factor / E)))``, and assignments past
   it dropped.  The kept tokens are gathered into an (E, B*C, D) buffer, each
-  expert's FFN is one batched product, and each token sums its k weighted
+  expert's kept tokens first in its block of B*C slots and zeros after them;
+  each expert's FFN is a batched product over its kept rows alone
+  (``ops.ragged_mm``: on a card in float32, a kernel that reads each
+  expert's row count on the device), and each token sums its k weighted
   slots.  Its router-to-slots dispatch, expert products and combine are
   ``model.moe.*`` spans of ``obs.device_spans`` (the dispatch and combine
   also in their backwards), and in the forward phase it counts the
-  assignments kept under capacity and its slots (``moe.*``).
+  assignments kept under capacity, its slots and the slot rows the products
+  compute (``moe.*``).
 
 Where the reference scatter-adds (the combine, and the gather's transpose
 in the backward), the port gathers each token's k slots and sums them in a
@@ -39,6 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import FF_SWIGLU, ModelConfig
+from repro_torch.kernels import moe_gemm
+from repro_torch.kernels.ops import ragged_mm
 from repro_torch.models.layers import apply_ffn, gelu
 from repro_torch.obs.device_spans import current_recorder, phase, span
 
@@ -49,6 +55,10 @@ def set_moe_impl(impl: str):
     if impl not in ("gather", "dense"):
         raise ValueError(f"moe impl {impl!r} is not 'gather' or 'dense'")
     _IMPL["impl"] = impl
+
+
+def moe_impl() -> str:
+    return _IMPL["impl"]
 
 
 def router_probs(p: dict, x) -> torch.Tensor:
@@ -87,15 +97,17 @@ def load_balance_loss(probs, expert_ids, num_experts: int) -> torch.Tensor:
                         probs.numel() // num_experts, num_experts)
 
 
-def _expert_ffn_batched(xg, p, ff_kind: str):
-    """xg: (E, T, D) tokens grouped by expert -> (E, T, D)."""
+def _expert_ffn_batched(xg, p, ff_kind: str, rows):
+    """xg: (E, T, D) tokens grouped by expert, expert e's ``rows[e]`` first
+    and zeros after them -> (E, T, D), zeros past ``rows[e]`` (silu and gelu
+    keep a zero row zero)."""
     if ff_kind == FF_SWIGLU:
-        g = torch.bmm(xg, p["w_gate"])
-        u = torch.bmm(xg, p["w_up"])
+        g = ragged_mm(xg, p["w_gate"], rows)
+        u = ragged_mm(xg, p["w_up"], rows)
         h = F.silu(g.float()).to(xg.dtype) * u
     else:
-        h = gelu(torch.bmm(xg, p["w_up"]))
-    return torch.bmm(h, p["w_down"])
+        h = gelu(ragged_mm(xg, p["w_up"], rows))
+    return ragged_mm(h, p["w_down"], rows)
 
 
 def _moe_dense(cfg: ModelConfig, p: dict, x, weights, ids):
@@ -160,8 +172,10 @@ class _Combine(torch.autograd.Function):
 def _gather_dispatch(cfg: ModelConfig, x, ids):
     """Capacity-bounded dispatch, *per sequence* (GShard-style groups), with
     per-sequence capacity C = ceil(S * k * capacity_factor / E): the kept
-    tokens as (E, B*C, D) slots, and the (slot_of_asg, asg_of_slot) tables
-    that ``_gather_combine`` reads."""
+    tokens as (E, B*C, D) slots, each expert's ``rows[e]`` kept tokens first
+    (sequence by sequence, each in its order of positions); ``rows``, int32
+    (E,); and the (slot_of_asg, asg_of_slot) tables that ``_gather_combine``
+    reads."""
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.num_experts, m.experts_per_token
@@ -182,11 +196,16 @@ def _gather_dispatch(cfg: ModelConfig, x, ids):
 
         cap = int(max(4, -(-N * m.capacity_factor // E)))          # ceil
         cap = min(cap, S)
-        # slots are expert-major over the batch, (E, B, C): each expert's
-        # tokens are one contiguous block of the batched product
+        # slots are expert-major, E blocks of B*C: expert e's kept tokens of
+        # sequence b start at off[b, e], after those of the sequences before
+        # it, so its rows[e] kept tokens are the first rows of its block
+        kept = torch.clamp(counts, max=cap)                        # (B, E)
+        off = torch.cumsum(kept, dim=0) - kept
+        rows = kept.sum(0).to(torch.int32)                         # (E,)
         n_slots = E * B * cap
-        slot_of_asg = torch.where(pos < cap, exp_ids * (B * cap) + row * cap + pos,
-                                  n_slots).reshape(-1)             # n_slots = dropped
+        slot_of_asg = torch.where(
+            pos < cap, exp_ids * (B * cap) + off.gather(1, exp_ids) + pos,
+            n_slots).reshape(-1)                                   # n_slots = dropped
         # the assignment in each slot, B*N = empty; every dropped assignment
         # writes the extra sentinel slot, which is cut off
         asg_of_slot = torch.full((n_slots + 1,), B * N, dtype=torch.long, device=dev)
@@ -198,8 +217,9 @@ def _gather_dispatch(cfg: ModelConfig, x, ids):
     if rec.enabled and phase() == "forward":
         rec.count("moe.kept", (pos < cap).sum())
         rec.count("moe.slots", n_slots)
+        rec.count("moe.rows", moe_gemm.rows_computed(rows, B * cap, x))
     xg = _Dispatch.apply(x.reshape(B * S, D), tok_of_slot, slot_of_asg, k)
-    return xg.view(E, B * cap, D), (slot_of_asg, asg_of_slot)
+    return xg.view(E, B * cap, D), rows, (slot_of_asg, asg_of_slot)
 
 
 def _gather_combine(yg, weights, slot_of_asg, asg_of_slot):
@@ -231,9 +251,9 @@ def moe_layer(cfg: ModelConfig, p: dict, x):
     else:
         with span("model.moe.dispatch"):
             probs, weights, ids = _route(m, p, x)
-            xg, tables = _gather_dispatch(cfg, x, ids)
+            xg, rows, tables = _gather_dispatch(cfg, x, ids)
         with span("model.moe.experts"):
-            yg = _expert_ffn_batched(xg, p, m.ff_kind)
+            yg = _expert_ffn_batched(xg, p, m.ff_kind, rows)
         with span("model.moe.combine"):
             y = _gather_combine(yg, weights, *tables)
     if m.num_shared_experts:

@@ -15,12 +15,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
                                     DiskCheckpointStore, flatten_tree,
                                     restore_from_host, snapshot_to_host)
-from repro_torch.configs import ATTN, SSM, smoke_config  # noqa: E402
+from repro_torch.configs import ATTN, FF_MOE, SSM, smoke_config  # noqa: E402
 from repro_torch.core.elastic import (ElasticTrainer, TrainJobConfig,  # noqa: E402
                                       local_slots)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.blocked import blocked_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.moe_gemm import (NN, NT, TN, ragged_gemm,  # noqa: E402
+                                          ragged_gemm_ref)
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -433,6 +435,72 @@ def test_moe_forward_on_card_matches_the_cpu(impl):
         torch.testing.assert_close(b.cpu(), a, atol=tol, rtol=tol)
 
 
+# the ragged expert products' cases: (E, T, K, N, rows[e]), each expert's
+# count of kept slot rows of T.  granite-moe-3b-a800m's layer at R=4 (40
+# experts, two sequences of capacity 512, d_model 1536, expert width 512)
+# with counts 0, 1, off the 128-row tile, on it and full, the rest falling
+# as 1/rank; deepseek-v2-236b's and jamba-v0.1-52b's widths at a few
+# experts; a decode step (capacity 1, 8 sequences); widths off every tile
+# and off 16-byte rows
+_ZIPF = [min(1024, 3000 // r) for r in range(1, 34)]
+RAGGED_CASES = [
+    (40, 1024, 1536, 512, [0, 1, 127, 128, 129, 640, 1024] + _ZIPF),
+    (4, 640, 5120, 1536, [640, 0, 257, 3]),
+    (2, 256, 4096, 14336, [200, 256]),
+    (40, 8, 1536, 512, [i % 9 for i in range(40)]),
+    (3, 300, 100, 37, [300, 131, 0])]
+
+
+def _ragged_operands(dev, E, T, K, N, rows, seed):
+    """X (E,T,K), W (E,K,N), G (E,T,N) float32 on the card, rows of X and G
+    past rows[e] NaN (the kernel must not read them), W scaled so every
+    product is of order 1; and X and G with those rows zero, as the gather
+    lays them out, for ``torch.bmm``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((E, T, K), device=dev, generator=g)
+    w = torch.randn((E, K, N), device=dev, generator=g) / K ** 0.5
+    gy = torch.randn((E, T, N), device=dev, generator=g) / N ** 0.5
+    past = torch.arange(T, device=dev)[None, :, None] >= rows[:, None, None]
+    return ([x.masked_fill(past, float("nan")), w, gy.masked_fill(past, float("nan"))],
+            [x.masked_fill(past, 0.0), w, gy.masked_fill(past, 0.0)], past)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,T,K,N,counts", RAGGED_CASES,
+                         ids=["granite", "deepseek", "jamba", "decode", "odd-widths"])
+def test_ragged_expert_products_match_bmm_on_card(E, T, K, N, counts):
+    """The three forms of the ragged kernel in float32 (TF32 off) against
+    ``torch.bmm`` over the same layout with the rows past each count zero:
+    within atol = rtol = 1e-4, as both sum in float32 in different orders
+    (the kernel along k in one pass, cuBLAS in its own tiling), over up to
+    14,336 terms of order 1/sqrt(K) each, where rounding stays near 1e-5;
+    1e-4 is the reference's gradient tolerance.  The rows the kernel must
+    not read hold NaN, the output rows past each count are exactly zero, an
+    expert with no rows gets an exactly zero weight gradient, two runs give
+    the same bits, and each call is one launch."""
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rows = torch.tensor(counts, dtype=torch.int32, device=dev)
+    (x, w, gy), (x0, _, gy0), past = _ragged_operands(dev, E, T, K, N, rows, E + K)
+    cases = [(NN, x, w, x0, w, past), (NT, gy, w, gy0, w, past),
+             (TN, x, gy, x0, gy0, None)]
+    for form, a, b, a0, b0, zero_rows in cases:
+        before = ops.launch_counts()["moe_gemm"]
+        got = ragged_gemm(form, a, b, rows)
+        again = ragged_gemm(form, a, b, rows)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["moe_gemm"] == before + 2
+        want = ragged_gemm_ref(form, a0, b0)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert torch.equal(got, again), form
+        assert bool(torch.isfinite(got).all()), form
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4, msg=f"form {form}")
+        if zero_rows is not None:
+            assert not got.masked_select(zero_rows.expand_as(got)).any(), form
+    empty = [e for e, n in enumerate(counts) if n == 0]
+    assert not got[empty].any()
+
+
 def _serve(cfg, params, tokens, prompt, steps, frames=None):
     """Prefill (an encoder-decoder's encoder over ``frames``), pad to the
     window, ``steps`` decode steps fed the known tokens; returns ([prefill
@@ -461,7 +529,8 @@ def test_serving_on_card_matches_the_cpu(arch):
     on the card a prefill launches flash attention once a GQA layer and the
     SSD scan once a Mamba-2 layer (an MLA layer attends through the blocked
     twin: no launch; jamba's block, flash once and the SSD 7 times), and a
-    decode step launches none."""
+    decode step neither; each pass launches the ragged expert products
+    three times an MoE layer (gate, up, down)."""
     dev = _card()
     cfg = smoke_config(arch).with_(dtype="float32")
     params = M.init_params(cfg, 0, device="cpu")
@@ -471,9 +540,11 @@ def test_serving_on_card_matches_the_cpu(arch):
     card_params = M.from_numpy_flat(M.to_numpy_flat(params), device=dev)
     got, cache, prefill, decode = _serve(cfg, card_params, tokens.to(dev), 16, 4)
     mixers = [cfg.mixer_at(i) for i in range(cfg.num_layers)]
-    launched = {"flash_attention": mixers.count(ATTN), "ssd": mixers.count(SSM)}
+    products = 3 * sum(cfg.ff_at(i) == FF_MOE for i in range(cfg.num_layers))
+    launched = {"flash_attention": mixers.count(ATTN), "ssd": mixers.count(SSM),
+                "moe_gemm": products}
     assert prefill == {k: launched.get(k, 0) for k in prefill}
-    assert not any(decode.values())
+    assert decode == {k: 4 * products if k == "moe_gemm" else 0 for k in decode}
     for a, b in zip(want, got):
         torch.testing.assert_close(b.cpu(), a, atol=2e-5, rtol=2e-5)
     want_flat, got_flat = flatten_tree(want_cache), flatten_tree(cache)
@@ -524,8 +595,10 @@ def test_deepseek_train_step_on_card_matches_the_cpu():
     """One trainer step of the deepseek smoke model (MLA, the dense prefix
     layer, stacked MoE layers with shared experts) on the card against the
     CPU from the same parameters: loss and aux within 2e-5, grad norm within
-    1e-4, every parameter after the update within 1e-4; no kernel launches
-    (the MLA layers attend through the blocked twin)."""
+    1e-4, every parameter after the update within 1e-4; the MLA layers
+    attend through the blocked twin (no launch), and each replica launches
+    the ragged expert products 12 times an MoE layer: gate, up and down in
+    the forward and in the recompute, and each one's two gradients."""
     dev = _card()
     cfg = smoke_config("deepseek-v2-236b")
     job = TrainJobConfig(global_batch=8, seq_len=32, total_steps=4, seed=3)
@@ -537,7 +610,9 @@ def test_deepseek_train_step_on_card_matches_the_cpu():
     before = ops.launch_counts()
     want, got = cpu.step(), card.step()
     torch.cuda.synchronize()
-    assert ops.launch_counts() == before
+    moe_layers = sum(cfg.ff_at(i) == FF_MOE for i in range(cfg.num_layers))
+    assert ops.launch_counts() == {**before,
+                                   "moe_gemm": before["moe_gemm"] + 12 * moe_layers * 2}
     assert got["aux"] > 0
     for k, tol in (("loss", 2e-5), ("aux", 2e-5), ("grad_norm", 1e-4)):
         assert abs(got[k] - want[k]) <= tol * max(1.0, abs(want[k])), (k, got[k], want[k])
@@ -558,7 +633,9 @@ def test_jamba_train_step_on_card_matches_the_cpu():
     ``tests/test_torch_hybrid.py::_rounding`` defines them: not 0 and below
     1e-7, where AdamW's first step goes by about the learning rate in the
     direction of the rounding), each replica's forward and recompute
-    launching flash once and the SSD 7 times."""
+    launching flash once and the SSD 7 times, and each replica the ragged
+    expert products 12 times an MoE layer (3 in the forward, 3 in the
+    recompute, 6 gradients)."""
     dev = _card()
     cfg = smoke_config("jamba-v0.1-52b")
     job = TrainJobConfig(global_batch=8, seq_len=32, total_steps=4, seed=3)
@@ -597,7 +674,8 @@ def test_jamba_train_step_on_card_matches_the_cpu():
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "flash_attention": 2 * 2 * 2, "pack": 0, "rmsnorm": 0, "ssd": 2 * 2 * 2 * 7}
+        "flash_attention": 2 * 2 * 2, "moe_gemm": 2 * 2 * 4 * 12, "pack": 0, "rmsnorm": 0,
+        "ssd": 2 * 2 * 2 * 7}
 
 
 @pytest.mark.cuda
@@ -619,7 +697,8 @@ def test_seamless_serving_on_card_matches_the_cpu():
     card_params = M.from_numpy_flat(M.to_numpy_flat(params), device=dev)
     got, cache, prefill, decode = _serve(cfg, card_params, tokens.to(dev), 16, 4,
                                          frames.to(dev))
-    assert prefill == {"flash_attention": cfg.num_layers, "pack": 0, "rmsnorm": 0, "ssd": 0}
+    assert prefill == {"flash_attention": cfg.num_layers, "moe_gemm": 0, "pack": 0,
+                       "rmsnorm": 0, "ssd": 0}
     assert not any(decode.values())
     for a, b in zip(want, got):
         torch.testing.assert_close(b.cpu(), a, atol=2e-5, rtol=2e-5)
@@ -666,7 +745,8 @@ def test_seamless_train_step_on_card_matches_the_cpu():
         assert abs(got[k] - want[k]) <= tol * max(1.0, abs(want[k])), (k, got[k], want[k])
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "flash_attention": 2 * 2 * cfg.num_layers, "pack": 0, "rmsnorm": 0, "ssd": 0}
+        "flash_attention": 2 * 2 * cfg.num_layers, "moe_gemm": 0, "pack": 0, "rmsnorm": 0,
+        "ssd": 0}
 
 
 # -- the wrappers' meta branches (the dry-run) against the kernels ----------------
@@ -693,6 +773,11 @@ def test_meta_wrappers_match_the_kernels_outputs_on_card(dtype):
         "pack": lambda m: (pack_leaves([m(t) for t in leaves]),),
         "rmsnorm": lambda m: (ops.rmsnorm(m(q).reshape(-1, 64), m(w)),),
     }
+    if dtype == torch.float32:          # bf16 takes torch.bmm: no launch
+        xe = torch.randn((2, 256, 32), device=dev, generator=g)
+        we = torch.randn((2, 32, 64), device=dev, generator=g)
+        rows = torch.tensor([256, 3], dtype=torch.int32, device=dev)
+        calls["moe_gemm"] = lambda m: (ragged_gemm(NN, m(xe), m(we), m(rows)),)
     for name, call in calls.items():
         ops.reset_launch_counts()
         real = call(lambda t: t)

@@ -29,6 +29,7 @@ from repro_torch.configs.base import SHAPES  # noqa: E402
 from repro_torch.core.elastic import ElasticTrainer, TrainJobConfig  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.moe_gemm import NN, NT, TN, ragged_gemm  # noqa: E402
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd  # noqa: E402
@@ -279,6 +280,13 @@ def test_meta_wrappers_give_the_kernels_outputs_and_launch_nothing():
              (pack_leaves(leaves), pack_leaves([t.to("meta") for t in leaves])),
              (ssd_scan_fwd(*ssd_in, chunk=8),
               ssd_scan_fwd(*(t.to("meta") for t in ssd_in), chunk=8))]
+    xe, we, ge = (torch.randn(s, generator=g) for s in ((3, 8, 16), (3, 16, 5), (3, 8, 5)))
+    rows = torch.tensor([8, 0, 3], dtype=torch.int32)
+    for form, a, b in ((NN, xe, we), (NT, ge, we), (TN, xe, ge)):
+        with MemTracker("meta") as mt:
+            meta = ragged_gemm(form, a.to("meta"), b.to("meta"), rows.to("meta"))
+        assert mt.kernel_flops == {"moe_gemm": 2 * 3 * 8 * 16 * 5}     # the padded product's
+        pairs.append((ragged_gemm(form, a, b, rows), meta))
     for c, m in pairs:
         assert m.is_meta and m.shape == c.shape and m.dtype == c.dtype
     assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)

@@ -369,7 +369,7 @@ def test_chip_smoke_bf16_phase_runs_at_smoke_size_on_the_cpu(tmp_path, capsys):
     counts = chip_smoke.bf16_phase(smoke_config("yi-6b"), str(tmp_path), fp32_loss,
                                    job={**JOB, "dtype": "bfloat16"}, device="cpu")
     assert counts == ops.launch_counts_by_dtype() == {
-        "flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
+        "flash_attention": {}, "moe_gemm": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
     out = capsys.readouterr().out
     for flag in ("byte_exact=True", "restored_vs_snapshot_byte_exact=True",
                  "restart_vs_saved_byte_exact=True"):
@@ -382,7 +382,8 @@ def test_chip_smoke_moe_phase_runs_at_smoke_size_on_the_cpu(capsys):
     CPU: finite losses, aux above 0, the host lane's restored state byte for
     byte its snapshot, no kernel launches."""
     counts, step_s, _ = chip_smoke.job_phase(smoke_config(MOE), "moe", job=JOB, device="cpu")
-    assert counts == {"flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
+    assert counts == {"flash_attention": {}, "moe_gemm": {}, "pack": {}, "rmsnorm": {},
+                      "ssd": {}}
     assert len(step_s) == 6
     out = capsys.readouterr().out
     assert "restored_vs_snapshot_byte_exact=True" in out, out

@@ -57,7 +57,7 @@ TRAJ_TOL = 5e-5
 TF_TOL = 2e-4
 B, S0, GEN, ENC = 2, 16, 4, 12
 JOB = dict(global_batch=8, seq_len=32, total_steps=12, seed=3)
-NO_LAUNCHES = {"flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
+NO_LAUNCHES = {"flash_attention": {}, "moe_gemm": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
 
 
 @pytest.fixture(scope="module", autouse=True)

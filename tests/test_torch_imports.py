@@ -109,6 +109,9 @@ DRYRUN_MODULES = {"repro_torch.sharding", "repro_torch.sharding.specs",
 # the spans and counters of the training path
 TRACING_MODULES = {"repro_torch.obs.device_spans"}
 
+# the experts' ragged products
+MOE_KERNEL_MODULES = {"repro_torch.kernels.moe_gemm"}
+
 
 def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
@@ -129,3 +132,4 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert ENCDEC_MODULES <= names, sorted(ENCDEC_MODULES - names)
     assert DRYRUN_MODULES <= names, sorted(DRYRUN_MODULES - names)
     assert TRACING_MODULES <= names, sorted(TRACING_MODULES - names)
+    assert MOE_KERNEL_MODULES <= names, sorted(MOE_KERNEL_MODULES - names)

@@ -21,6 +21,7 @@ from repro_torch.checkpoint.reshard import snapshot_to_host  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (_rows_aligned,  # noqa: E402
                                                  flash_attention_fwd)
+from repro_torch.kernels.moe_gemm import NN, TN, ragged_gemm  # noqa: E402
 from repro_torch.kernels.pack import pack_leaves  # noqa: E402
 
 
@@ -77,7 +78,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     pack_leaves([q, k])
     ops.ssd(q, torch.ones(1, 32, 4), torch.zeros(4), k[..., :8], k[..., 8:],
             chunk=8)
-    assert ops.launch_counts() == {"flash_attention": 0, "pack": 0,
+    ops.ragged_mm(q[0], k[0].transpose(1, 2), torch.full((32,), 2, dtype=torch.int32))
+    assert ops.launch_counts() == {"flash_attention": 0, "moe_gemm": 0, "pack": 0,
                                    "rmsnorm": 0, "ssd": 0}
 
 
@@ -86,7 +88,7 @@ def test_launch_counts_by_dtype_count_no_cpu_call_and_reset():
     q, k, v = map(torch.from_numpy, _qkv(0, 1, 32, 4, 2, 16))
     ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     pack_leaves([q.bfloat16(), k.bfloat16()])
-    none = {"flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
+    none = {"flash_attention": {}, "moe_gemm": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
     assert ops.launch_counts_by_dtype() == none
     pack_leaves.launches["bfloat16"] += 3        # as card launches leave them
     pack_leaves.launches["float32"] += 1
@@ -110,6 +112,14 @@ def test_wrappers_refuse_devices_they_do_not_serve():
             ops.rmsnorm(q, torch.empty(16, device="xpu"))
         with pytest.raises(ValueError):
             pack_leaves([q])
+        with pytest.raises(ValueError):
+            ragged_gemm(NN, torch.empty((2, 8, 16), device="xpu"),
+                        torch.empty((2, 16, 4), device="xpu"),
+                        torch.empty(2, dtype=torch.int32, device="xpu"))
+    with pytest.raises(ValueError):           # widths that do not chain
+        ragged_gemm(NN, torch.zeros(2, 8, 16), torch.zeros(2, 12, 4), torch.zeros(2).int())
+    with pytest.raises(ValueError):           # a count for each expert
+        ragged_gemm(TN, torch.zeros(2, 8, 16), torch.zeros(2, 8, 4), torch.zeros(3).int())
     with pytest.raises(ValueError):           # head_dim the kernel lacks
         flash_attention_fwd(*(torch.zeros(1, 8, 2, 24) for _ in range(3)))
 

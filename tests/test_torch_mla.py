@@ -519,7 +519,7 @@ def test_chip_smoke_mla_phase_rehearses_on_the_cpu(capsys):
     train, serve = chip_smoke.mla_phase(
         "cpu", device="cpu", train_cfg=cfg, serve_cfg=cfg.with_(dtype="float32"), job=JOB,
         serve=dict(batch=2, prompt=16, gen=8), tf=dict(batch=1, prompt=8, gen=5))
-    none = {"flash_attention": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
+    none = {"flash_attention": {}, "moe_gemm": {}, "pack": {}, "rmsnorm": {}, "ssd": {}}
     assert train == serve == none
     out = capsys.readouterr().out
     assert "restored_vs_snapshot_byte_exact=True" in out, out

@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import smoke_config as jsmoke_config  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.kernels import moe_gemm  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 
@@ -29,6 +30,9 @@ FWD_TOL, GRAD_TOL = 2e-5, 1e-4
 # (implementation, capacity factor): at 0.25 the capacity is max(4, 2) = 4
 # slots per expert and sequence for 8 assignments each on average
 CASES = [("dense", 1.25), ("gather", 1.25), ("gather", 100.0), ("gather", 0.25)]
+# (capacity factor, batch, sequence) of the slot layout's cases: 0.25 drops
+# tokens, 100 none; a sequence of 1 is a decode step (capacity 1)
+LAYOUT_CASES = [(0.25, B, S), (1.25, B, S), (100.0, B, S), (1.25, 4, 1)]
 
 
 def _cfgs(cf):
@@ -153,3 +157,44 @@ def test_gather_is_deterministic():
     a, b = _port_run("gather", 1.25, x, r, p), _port_run("gather", 1.25, x, r, p)
     assert a[0].tobytes() == b[0].tobytes() and a[3].tobytes() == b[3].tobytes()
     assert all(a[2][k].tobytes() == b[2][k].tobytes() for k in a[2])
+
+
+@pytest.mark.parametrize("cf,b,s", LAYOUT_CASES)
+def test_gather_layout_puts_each_experts_kept_rows_first(cf, b, s):
+    """The gather's compact slot layout: expert e's rows[e] = sum over
+    sequences of min(count, C) kept assignments fill the first rows[e] slots
+    of its block of B*C, sequence by sequence, each sequence's in order of
+    assignment (the drop order of the stable sort), and every slot past them
+    is empty and zero; the ragged kernel computes each rows[e] rounded up to
+    its row tile.  (Outputs and gradients on this layout are held to the
+    JAX package and the dense oracle by the tests above.)"""
+    _, cfg = _cfgs(cf)
+    E, k, D = cfg.moe.num_experts, cfg.moe.experts_per_token, cfg.d_model
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((b, s, D)).astype(np.float32))
+    ids = torch.from_numpy(rng.random((b, s, E))).topk(k, dim=-1).indices
+    xg, rows, (slot_of_asg, asg_of_slot) = moe._gather_dispatch(cfg, x, ids)
+    T = xg.shape[1]
+    C = T // b
+    flat = ids.reshape(b, s * k).numpy()
+    counts = np.stack([np.bincount(r, minlength=E) for r in flat])
+    assert rows.dtype == torch.int32
+    np.testing.assert_array_equal(rows.numpy(), np.minimum(counts, C).sum(0))
+    want = np.full(b * s * k, E * T)              # dropped: the sentinel
+    for e in range(E):
+        slot = e * T
+        for bb in range(b):
+            kept = [n for n in range(s * k) if flat[bb, n] == e][:C]
+            want[bb * s * k + np.array(kept, dtype=int)] = slot + np.arange(len(kept))
+            slot += len(kept)
+    np.testing.assert_array_equal(slot_of_asg.numpy(), want)
+    filled = (asg_of_slot < b * s * k).view(E, T)
+    assert torch.equal(filled, torch.arange(T)[None, :] < rows[:, None])
+    tok = (asg_of_slot // k).view(E, T)
+    for e in range(E):
+        n = int(rows[e])
+        assert torch.equal(xg[e, :n], x.reshape(b * s, D)[tok[e, :n]])
+        assert not xg[e, n:].any()
+    tiles = sum(min(-(-int(n) // moe_gemm.ROW_TILE) * moe_gemm.ROW_TILE, T) for n in rows)
+    assert int(moe_gemm.rows_computed(rows, T, torch.empty(0, device="meta"))) == tiles
+    assert moe_gemm.rows_computed(rows, T, x) == E * T     # the plain bmm: every slot

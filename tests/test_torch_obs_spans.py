@@ -143,7 +143,8 @@ def test_a_moe_steps_counters_are_the_dispatch_tables_own(monkeypatch):
     assert len(tables) == 2 * cfg.num_layers             # each layer, each shard
     assert out["counters"] == {
         "moe.kept": sum(int((s < n).sum()) for s, n in tables),
-        "moe.slots": sum(n for _, n in tables)}
+        "moe.slots": sum(n for _, n in tables),
+        "moe.rows": sum(n for _, n in tables)}      # the plain products: every slot
     assignments = JOB["global_batch"] * JOB["seq_len"] * cfg.moe.experts_per_token
     assert sum(s.numel() for s, _ in tables) == assignments * cfg.num_layers
     assert 0 < out["counters"]["moe.kept"] < assignments * cfg.num_layers

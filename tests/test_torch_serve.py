@@ -325,4 +325,5 @@ def test_chip_smoke_serving_phase_rehearses_on_the_cpu(arch):
     import chip_smoke
     counts = chip_smoke.serve_model(smoke_config(arch).with_(dtype="float32"), "cpu",
                                     batch=2, prompt=16, gen=8, device="cpu")
-    assert counts == {k: {} for k in ("flash_attention", "pack", "rmsnorm", "ssd")}
+    assert counts == {k: {} for k in ("flash_attention", "moe_gemm", "pack", "rmsnorm",
+                                              "ssd")}
